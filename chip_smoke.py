@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py        # from the root of a checkout, one card
+
+Phases (any failure ends the run with a non-zero exit; none is caught):
+
+1. Print the card (``nvidia-smi`` name and power limit) and build the
+   hand-written CUDA kernels from ``src/repro_torch/csrc``.
+2. Hold each kernel against its plain PyTorch version on the card, bit
+   for bit, at the main path's shapes (per-instance row counts of a
+   B = 1,048,576 round), and time kernel, plain version and, where one
+   exists, a single PyTorch call computing the same function.
+3. The main path: for each of the 13 registry designs,
+   ``repro_torch.designs.generate(name)`` (auto: the fused capability)
+   multiplies B = 65,536 operand pairs at the design's full width,
+   checked against the plain (core) bank on the card and the Python
+   bigint oracle on 1,024 rows; each round must add exactly
+   ``bank.launch_count(B) == 1`` to the bank kernel's counter.  A signed
+   design and ``mul(0xDEADBEEF, 0xCAFEBABE)`` run too.  Then every
+   unsigned design runs again on the per-instance ``kernel`` capability,
+   one launch per busy instance.
+4. Time whole fused rounds of tp3p5_w32 and tp5over6_w128 at
+   B = 1,048,576 with CUDA events.
+
+The line before the last is the per-kernel JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
+"""
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+
+SEED = 20230131
+B_MAIN = 65_536          # operand pairs per design on the main path
+B_TIME = 1_048_576       # operand pairs of a timed round
+ORACLE_ROWS = 1_024
+# H100 SXM peaks (NVIDIA data sheet; CUDA C Programming Guide throughput
+# table for compute capability 9.0: 64 int32 add/logic/shift/IMAD results
+# per clock per SM, 132 SMs, 1.98 GHz boost clock)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def operands(rng, shape, bits, device):
+    from repro_torch.core import limbs as L
+    return (L.from_numpy(L.random_limbs(rng, shape, bits), device),
+            L.from_numpy(L.random_limbs(rng, shape, bits), device))
+
+
+def cuda_ms(fn, iters, warmup=2):
+    """Mean milliseconds per call over ``iters`` calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def oracle(a, b, signed=False):
+    from repro_torch.core import limbs as L
+    la, lb = a.shape[-1], b.shape[-1]
+    out = []
+    for x, y in zip(a.cpu().numpy(), b.cpu().numpy()):
+        x, y = L.from_limbs(x), L.from_limbs(y)
+        if signed:
+            x -= (x >> (16 * la - 1)) << (16 * la)
+            y -= (y >> (16 * lb - 1)) << (16 * lb)
+        out.append((x * y) % (1 << (16 * (la + lb))))
+    return out
+
+
+def packed(x):
+    """Limbs of <= 32-bit operands packed into one int64 per row."""
+    x = x.reshape(-1, x.shape[-1]).to(torch.int64)
+    return x[:, 0] | (x[:, 1] << 16) if x.shape[1] > 1 else x[:, 0]
+
+
+# ------------------------------------------------------ operation counts
+
+def ops_per_row(kernel, la, lb, windows=None, ct_run=1, chunk=1):
+    """Integer operations one row needs: 5 per 16x16 limb product (mul,
+    mask, shift, two adds) and 3 per carry-propagated column."""
+    if kernel == "bank_fold":
+        width = sum(hi - lo for lo, hi in windows)
+        return 5 * la * width + 3 * (la + lb)
+    if kernel == "mcim_fold_fb":
+        return 5 * la * lb + 3 * ct_run * (la + chunk + 1)
+    if kernel == "mcim_fold_ff":
+        return 5 * la * lb + 3 * (la + lb)
+    n = max(la, lb) + max(la, lb) % 2
+    h, hp = n // 2, n // 2 + 1
+    return (2 * 4 * h                          # A0+A1, B0+B1
+            + 3 * (5 * hp * hp + 3 * 2 * hp)   # three PPM passes + 1CA
+            + 3 * 2 * hp + 2 * (2 * 2 * n + 1)  # placements, NOT+1 terms
+            + 3 * (la + lb))                   # final adder
+
+
+def bound(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------- phases
+
+def phase_card():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s")
+    for name in _build.SOURCES:
+        regs = [line.split(":")[-1].strip()
+                for line in _build.build_log(name).splitlines()
+                if "Used" in line and "registers" in line]
+        print(f"  {name}: {len(regs)} kernels; {'; '.join(regs)}")
+    return smi
+
+
+def kernel_entry(name, route_name, source, replaces, kernel_fn, plain_fn,
+                 args, out_elems, n_ops, extra_bytes=0, library=None):
+    """Check a kernel against its plain version on the same inputs and
+    time both (and the library call, if any)."""
+    got = kernel_fn(*args)
+    want = plain_fn(*args)
+    torch.cuda.synchronize()
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+    check(err == 0 and got.shape == want.shape,
+          f"{name}: kernel disagrees with its plain version (max abs "
+          f"err {err})")
+    ms = cuda_ms(lambda: kernel_fn(*args), iters=20)
+    plain_ms = cuda_ms(lambda: plain_fn(*args), iters=3, warmup=1)
+    lib_ms = None
+    if library is not None:
+        lib_ms = cuda_ms(library, iters=20)
+    n_bytes = 4 * (sum(t.numel() for t in args[:2]) + out_elems) \
+        + extra_bytes
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"  {name}: rows {args[0].shape[-2]} x limbs "
+          f"{args[0].shape[-1]}x{args[1].shape[-1]}  kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B, {n_ops} ops)  "
+          f"max_abs_err {err}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "counter": route_name, "launches": None,
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def phase_kernels(device):
+    """Each kernel against its plain version at the main path's shapes."""
+    from repro_torch import designs
+    from repro_torch.kernels import bank_fold as BF
+    from repro_torch.kernels import mcim_fold as MF
+    print(f"phase 2: kernels vs plain versions, rows of a B={B_TIME} round")
+    rng = np.random.default_rng(SEED)
+    entries, rounds = [], {}
+    src_bank = "src/repro_torch/csrc/bank_fold.cu"
+    src_fold = "src/repro_torch/csrc/mcim_fold.cu"
+    ref_fold = "src/repro/kernels/mcim_fold/kernel.py"
+
+    for design_name in ("tp3p5_w32", "tp5over6_w128"):
+        d = designs.generate(design_name, device=device)
+        check(d.bank.backend == "fused", f"{design_name}: auto is not fused")
+        n_ops = [i.n_ops for i in d.report(B_TIME).instances]
+        rows, _ = BF.fused_block_rows([range(n) for n in n_ops])
+        sg = BF.super_geometry(d.bank.instances, d.la, d.lb)
+        table = torch.from_numpy(sg.table()).to(device)
+        a, b = operands(rng, (sg.n_instances, rows), d.spec.bits_a, device)
+        ops = rows * sum(ops_per_row("bank_fold", d.la, d.lb,
+                                     sg.windows(i))
+                         for i in range(sg.n_instances))
+        lib = None
+        if d.spec.bits_a <= 32:
+            pa, pb = packed(a), packed(b)
+            lib = lambda pa=pa, pb=pb: pa * pb          # noqa: E731
+        entry = kernel_entry(
+            "bank_fold" if design_name == "tp3p5_w32"
+            else f"bank_fold/{design_name}", "bank_fold", src_bank,
+            "src/repro/kernels/bank_fold/kernel.py:44",
+            BF.fused_bank_mul, BF.fused_bank_mul_ref, (a, b, table),
+            sg.n_instances * rows * (d.la + d.lb), ops,
+            extra_bytes=table.numel() * 4, library=lib)
+        entries.append(entry)
+        rounds[design_name] = entry
+
+        kd = designs.generate(dataclasses.replace(d.spec, backend="kernel"),
+                              device=device)
+        for cfg, n in zip(kd.bank.instances, n_ops):
+            if design_name == "tp3p5_w32" and cfg.arch == "star":
+                key, ct, sched, label = "mcim_fold_fb", 1, "fb", \
+                    "mcim_fold_fb/star"
+                line = 93
+            elif design_name == "tp5over6_w128" and cfg.arch == "fb":
+                key, ct, sched, label, line = ("mcim_fold_fb", cfg.ct, "fb",
+                                               "mcim_fold_fb", 93)
+            elif cfg.arch == "karatsuba":
+                key, ct, sched, label, line = ("mcim_fold_karatsuba", 3,
+                                               "karatsuba",
+                                               "mcim_fold_karatsuba", 203)
+            else:
+                continue
+            if any(e["name"] == label for e in entries):
+                continue
+            fa, fb_ = operands(rng, (n,), d.spec.bits_a, device)
+            geo = MF.fold_geometry(d.la, d.lb, ct, sched)
+            lib = None
+            if d.spec.bits_a <= 32:
+                pa, pb = packed(fa), packed(fb_)
+                lib = lambda pa=pa, pb=pb: pa * pb      # noqa: E731
+            entries.append(kernel_entry(
+                label, key, src_fold, f"{ref_fold}:{line}",
+                lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul(
+                    x, y, ct=ct, schedule=s),
+                lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul_ref(
+                    x, y, ct=ct, schedule=s),
+                (fa, fb_), n * (d.la + d.lb),
+                n * ops_per_row(key, d.la, d.lb, ct_run=geo.ct_run,
+                                chunk=geo.chunk), library=lib))
+
+    # ff: the strict 32-bit Table VIII point, one CT=2 instance
+    d = designs.generate("tbl8_w32_strict", device=device)
+    cfg = d.bank.instances[0]
+    check(cfg.arch == "ff", "tbl8_w32_strict is expected to plan ff")
+    fa, fb_ = operands(rng, (B_TIME,), d.spec.bits_a, device)
+    pa, pb = packed(fa), packed(fb_)
+    entries.append(kernel_entry(
+        "mcim_fold_ff", "mcim_fold_ff", src_fold, f"{ref_fold}:146",
+        lambda x, y: MF.mcim_fold_mul(x, y, ct=cfg.ct, schedule="ff"),
+        lambda x, y: MF.mcim_fold_mul_ref(x, y, ct=cfg.ct, schedule="ff"),
+        (fa, fb_), B_TIME * (d.la + d.lb),
+        B_TIME * ops_per_row("mcim_fold_ff", d.la, d.lb),
+        library=lambda: pa * pb))
+    names = {e["counter"] for e in entries}
+    check(names == {"bank_fold", "mcim_fold_fb", "mcim_fold_ff",
+                    "mcim_fold_karatsuba"}, f"kernels covered: {names}")
+    return entries, rounds
+
+
+def phase_main_path(device):
+    from repro_torch import designs
+    from repro_torch.core.bank import Bank
+    from repro_torch.core import limbs as L
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    print(f"phase 3: main path, 13 registry designs x B={B_MAIN}")
+    rng = np.random.default_rng(SEED + 1)
+    inputs, plain = {}, {}
+
+    reset_launch_counts()                       # --- fused (auto) path
+    for name in designs.names():
+        d = designs.generate(name)              # default device: the card
+        check(d.bank.backend == "fused", f"{name}: auto gave "
+              f"{d.bank.backend}")
+        a, b = operands(rng, (B_MAIN,), d.spec.bits_a, device)
+        before = launch_counts()["bank_fold"]
+        out = d.mul(a, b)
+        torch.cuda.synchronize()
+        launched = launch_counts()["bank_fold"] - before
+        check(launched == d.bank.launch_count(B_MAIN) == 1,
+              f"{name}: {launched} bank_fold launches for one round")
+        want = Bank(d.plan, d.spec.bits_a, d.spec.bits_b, backend="core",
+                    device=device).execute(a, b)
+        check(torch.equal(out, want), f"{name}: fused != plain core bank")
+        check(out.shape == (B_MAIN, d.la + d.lb), f"{name}: shape")
+        check(L.batch_from_limbs(out[:ORACLE_ROWS])
+              == oracle(a[:ORACLE_ROWS], b[:ORACLE_ROWS]),
+              f"{name}: fused != bigint oracle")
+        inputs[name], plain[name] = (a, b), want
+        print(f"  {name}: {d.plan.describe()}  fused ok, 1 launch")
+
+    spec = dataclasses.replace(designs.get("tp3p5_w32"), signed=True)
+    d = designs.generate(spec)
+    a, b = operands(rng, (B_MAIN,), 32, device)
+    out = d.mul(a, b)
+    want = Bank(d.plan, 32, 32, backend="core", device=device).execute(a, b)
+    check(d.bank.backend == "fused" and torch.equal(out, want),
+          "signed tp3p5_w32: fused != plain core bank")
+    check(L.batch_from_limbs(out[:ORACLE_ROWS])
+          == oracle(a[:ORACLE_ROWS], b[:ORACLE_ROWS], signed=True),
+          "signed tp3p5_w32: fused != bigint oracle")
+    check(d.mul(-(1 << 31), 0x7FFFFFFF) == -(1 << 31) * 0x7FFFFFFF,
+          "signed int mul")
+    got = designs.generate("tp3p5_w32").mul(0xDEADBEEF, 0xCAFEBABE)
+    check(got == 0xDEADBEEF * 0xCAFEBABE, f"int mul gave {got:#x}")
+    print("  signed tp3p5_w32 fused ok; mul(0xDEADBEEF, 0xCAFEBABE) = "
+          f"{got:#x}")
+    fused_counts = launch_counts()
+    print(f"  fused path launches: {fused_counts}")
+
+    reset_launch_counts()                       # --- per-instance kernels
+    for name in designs.names():
+        spec = dataclasses.replace(designs.get(name), backend="kernel")
+        if spec.signed:
+            continue
+        d = designs.generate(spec)
+        a, b = inputs[name]
+        before = sum(launch_counts().values())
+        out = d.mul(a, b)
+        torch.cuda.synchronize()
+        launched = sum(launch_counts().values()) - before
+        busy = sum(1 for i in d.report(B_MAIN).instances if i.n_ops)
+        check(launched == d.bank.launch_count(B_MAIN) == busy,
+              f"{name}: {launched} launches for {busy} busy instances")
+        check(torch.equal(out, plain[name]), f"{name}: kernel != plain")
+    kernel_counts = launch_counts()
+    print(f"  kernel path launches: {kernel_counts}")
+    return fused_counts, kernel_counts
+
+
+def phase_rounds(device, rounds):
+    from repro_torch import designs
+    from repro_torch.core.bank import Bank
+    print(f"phase 4: fused rounds at B={B_TIME}")
+    rng = np.random.default_rng(SEED + 2)
+    for name, entry in rounds.items():
+        d = designs.generate(name)
+        a, b = operands(rng, (B_TIME,), d.spec.bits_a, device)
+        core = Bank(d.plan, d.spec.bits_a, d.spec.bits_b, backend="core",
+                    device=device)
+        check(torch.equal(d.mul(a, b), core.execute(a, b)),
+              f"{name}: round != plain core bank")
+        round_ms = cuda_ms(lambda: d.mul(a, b), iters=10)
+        core_ms = cuda_ms(lambda: core.execute(a, b), iters=2, warmup=1)
+        # the round's two layers: host cycle accounting (Bank.report,
+        # run by every execute) and the device dispatch (gather, kernel,
+        # gather back)
+        t0 = time.perf_counter()
+        d.bank.report(B_TIME)
+        report_ms = (time.perf_counter() - t0) * 1e3
+        run = d.bank.dispatch_fn(B_TIME)
+        dispatch_ms = cuda_ms(lambda: run(a, b), iters=10)
+        print(f"  round {name} B={B_TIME}: kernel {entry['ms']:.4f} ms  "
+              f"mul round {round_ms:.4f} ms (host report {report_ms:.4f} "
+              f"ms, device dispatch {dispatch_ms:.4f} ms)  plain kernel "
+              f"{entry['plain_ms']:.4f} ms  plain core round "
+              f"{core_ms:.4f} ms")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    device = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    smi = phase_card()
+    entries, rounds = phase_kernels(device)
+    fused_counts, kernel_counts = phase_main_path(device)
+    for e in entries:
+        counts = fused_counts if e["counter"] == "bank_fold" \
+            else kernel_counts
+        e["launches"] = counts[e.pop("counter")]
+        check(e["launches"] > 0, f"{e['name']}: never launched on the path")
+    phase_rounds(device, rounds)
+    print(f"total {time.perf_counter() - t0:.1f} s on {smi}")
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

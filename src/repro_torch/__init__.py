@@ -1,0 +1,13 @@
+"""PyTorch + CUDA port of the multi-cycle folded integer multiplier
+generator, for an NVIDIA H100.
+
+It imports torch, numpy and the standard library only.  Entry points
+(:func:`repro_torch.designs.generate`, :class:`repro_torch.core.bank.Bank`)
+run on the CUDA card unless the caller passes ``device="cpu"``; on the
+card every bank round goes through hand-written CUDA kernels
+(:mod:`repro_torch.kernels`), on the CPU through their plain PyTorch
+versions.
+"""
+from . import core, designs, kernels
+
+__all__ = ["core", "designs", "kernels"]

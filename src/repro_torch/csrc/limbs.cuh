@@ -1,0 +1,72 @@
+// Shared constants and helpers of the limb kernels.
+//
+// Limbs are 16-bit values held in 32-bit words (torch.int32 on the host,
+// read here as uint32). Column sums accumulate in uint32 registers, as
+// in the reference package's core/limbs.py: every column the kernels
+// build stays below 2**32, so no sum wraps.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace limbs {
+
+constexpr uint32_t kRadixBits = 16;
+constexpr uint32_t kMask = 0xFFFFu;
+// one thread per multiplication (row); rows of a block are neighbours
+constexpr int kThreads = 128;
+
+// Smallest compiled operand width (limbs) that holds max(la, lb): the
+// kernels are templated on it so every limb array lives in registers.
+inline int bucket(int la, int lb) {
+  const int n = la > lb ? la : lb;
+  return n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : 16;
+}
+
+// Load `n` limbs of one row into a register array of MAXL, zero-filled.
+template <int MAXL>
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ src,
+                                         int n, uint32_t (&dst)[MAXL]) {
+#pragma unroll
+  for (int k = 0; k < MAXL; ++k) dst[k] = k < n ? src[k] : 0u;
+}
+
+// Schoolbook partial products of a x b[jb] for every B limb jb in
+// [lo, hi), added at their absolute column i + jb (lo half) and
+// i + jb + 1 (hi half). Limbs outside the window add nothing, exactly as
+// the reference's masked B operand.
+template <int MAXL>
+__device__ __forceinline__ void ppm_window(const uint32_t (&a)[MAXL],
+                                           const uint32_t (&b)[MAXL],
+                                           int lo, int hi,
+                                           uint32_t (&acc)[2 * MAXL]) {
+#pragma unroll
+  for (int jb = 0; jb < MAXL; ++jb) {
+    if (jb >= lo && jb < hi) {
+#pragma unroll
+      for (int i = 0; i < MAXL; ++i) {
+        const uint32_t p = a[i] * b[jb];  // exact 16x16 -> 32
+        acc[i + jb] += p & kMask;
+        acc[i + jb + 1] += p >> kRadixBits;
+      }
+    }
+  }
+}
+
+// Final adder: carry-propagate columns [0, n) and store them as limbs;
+// the carry out of column n-1 is dropped (mod 2**(16n)).
+template <int W>
+__device__ __forceinline__ void carry_store(const uint32_t (&cols)[W], int n,
+                                            uint32_t* __restrict__ dst) {
+  uint32_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    if (k < n) {
+      const uint32_t tot = cols[k] + carry;
+      dst[k] = tot & kMask;
+      carry = tot >> kRadixBits;
+    }
+  }
+}
+
+}  // namespace limbs

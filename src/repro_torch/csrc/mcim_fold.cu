@@ -1,0 +1,244 @@
+// Per-instance folded multipliers: the "kernel" capability of a bank.
+//
+// Replaces the three kernel bodies of the reference package's
+// kernels/mcim_fold/kernel.py, each (B, LA) x (B, LB) -> (B, LA+LB):
+//   _fb_kernel   (:93)  Feedback fold (Star at CT=1),
+//   _ff_kernel   (:146) Feed-forward fold,
+//   _kara_kernel (:203) folded Karatsuba at CT=3 (_kara_fold_call :277).
+//
+// Design. On the TPU the grid is (row tile, cycle) and the cycle axis
+// runs in order, the VMEM scratch playing the feedback register. Here a
+// thread owns one multiplication (row) and the cycle axis is a loop
+// inside it, the accumulator in registers; rows are independent threads
+// and blocks, the ragged edge masked. Kernels are templated on the
+// operand width so every limb array is indexed statically (registers).
+//
+// FB keeps its accumulator at absolute column positions: the TPU
+// kernel's "shift right by CHUNK limbs" becomes moving the window origin
+// up by CHUNK, and "retire CHUNK limbs" becomes leaving them below the
+// origin. Each cycle adds A x B[chunk j] and runs the 1CA over the same
+// LA + CHUNK + 1 window as the TPU kernel (clipped at LA+LB: columns
+// above the product only carry further up), so every stored limb has the
+// same bits. FF adds each cycle's partial products at offset j*CHUNK of
+// the register file and runs one carry pass at the end.
+//
+// Bound: at the registry widths (1 to 8 limbs) memory bytes bound all
+// three (8*(LA+LB) bytes a row against a few hundred integer ops); the
+// row-per-thread layout reads rows with a stride of LA words across a
+// warp, which later work can coalesce.
+#include "limbs.cuh"
+
+namespace {
+
+using limbs::kMask;
+using limbs::kRadixBits;
+
+template <int MAXL>
+__global__ void fb_kernel(const uint32_t* __restrict__ a,
+                          const uint32_t* __restrict__ b,
+                          uint32_t* __restrict__ out, int bsz, int la,
+                          int lb, int ct, int chunk) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= bsz) return;
+  uint32_t av[MAXL], bv[MAXL], acc[2 * MAXL];
+  limbs::load_row<MAXL>(a + r * la, la, av);
+  limbs::load_row<MAXL>(b + r * lb, lb, bv);
+#pragma unroll
+  for (int k = 0; k < 2 * MAXL; ++k) acc[k] = 0u;
+  const int n_out = la + lb;
+
+  for (int j = 0; j < ct; ++j) {  // the MCIM clock cycles, in order
+    const int base = j * chunk;   // window origin after j feedback shifts
+    limbs::ppm_window<MAXL>(av, bv, base, base + chunk, acc);
+    // 1CA over the M + N/CT (+carry) window
+    const int top = min(base + la + chunk + 1, n_out);
+    uint32_t carry = 0;
+#pragma unroll
+    for (int k = 0; k < 2 * MAXL; ++k) {
+      if (k >= base && k < top) {
+        const uint32_t tot = acc[k] + carry;
+        acc[k] = tot & kMask;
+        carry = tot >> kRadixBits;
+      }
+    }
+  }
+  uint32_t* dst = out + r * n_out;
+#pragma unroll
+  for (int k = 0; k < 2 * MAXL; ++k) {
+    if (k < n_out) dst[k] = acc[k];
+  }
+}
+
+template <int MAXL>
+__global__ void ff_kernel(const uint32_t* __restrict__ a,
+                          const uint32_t* __restrict__ b,
+                          uint32_t* __restrict__ out, int bsz, int la,
+                          int lb, int ct, int chunk) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= bsz) return;
+  uint32_t av[MAXL], bv[MAXL], acc[2 * MAXL];
+  limbs::load_row<MAXL>(a + r * la, la, av);
+  limbs::load_row<MAXL>(b + r * lb, lb, bv);
+#pragma unroll
+  for (int k = 0; k < 2 * MAXL; ++k) acc[k] = 0u;
+  for (int j = 0; j < ct; ++j) {  // shared PPM into the register file
+    limbs::ppm_window<MAXL>(av, bv, j * chunk, (j + 1) * chunk, acc);
+  }
+  limbs::carry_store<2 * MAXL>(acc, la + lb, out + r * (la + lb));
+}
+
+// Karatsuba operand of cycle j on the shared (H+1)-limb PPM port:
+// X0, X1, or X0+X1 normalized to H+1 limbs.
+template <int N>
+__device__ __forceinline__ void kara_port(const uint32_t (&x)[N], int j,
+                                          uint32_t (&port)[N / 2 + 1]) {
+  constexpr int H = N / 2;
+  if (j < 2) {
+#pragma unroll
+    for (int k = 0; k < H; ++k) port[k] = x[j * H + k];
+    port[H] = 0u;
+    return;
+  }
+  uint32_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const uint32_t tot = x[k] + x[H + k] + carry;
+    port[k] = tot & kMask;
+    carry = tot >> kRadixBits;
+  }
+  port[H] = carry & kMask;
+}
+
+// N: operand limbs padded to an even count (the reference pads on the
+// host; here the loads zero-fill). The scratch accumulator is 2N wide.
+template <int N>
+__global__ void kara_kernel(const uint32_t* __restrict__ a,
+                            const uint32_t* __restrict__ b,
+                            uint32_t* __restrict__ out, int bsz, int la,
+                            int lb) {
+  constexpr int H = N / 2, HP = H + 1, W = 2 * N;
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= bsz) return;
+  uint32_t av[N], bv[N], acc[W];
+  limbs::load_row<N>(a + r * la, la, av);
+  limbs::load_row<N>(b + r * lb, lb, bv);
+#pragma unroll
+  for (int k = 0; k < W; ++k) acc[k] = 0u;
+
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {  // the three Karatsuba cycles, in order
+    uint32_t x[HP], y[HP], cols[2 * HP], t[2 * HP];
+    kara_port<N>(av, j, x);
+    kara_port<N>(bv, j, y);
+    // shared PPM and its 1CA: T_j as 2*HP canonical limbs
+#pragma unroll
+    for (int k = 0; k < 2 * HP; ++k) cols[k] = 0u;
+#pragma unroll
+    for (int jj = 0; jj < HP; ++jj) {
+#pragma unroll
+      for (int i = 0; i < HP; ++i) {
+        const uint32_t p = x[i] * y[jj];
+        cols[i + jj] += p & kMask;
+        cols[i + jj + 1] += p >> kRadixBits;
+      }
+    }
+    uint32_t carry = 0;
+#pragma unroll
+    for (int k = 0; k < 2 * HP; ++k) {
+      const uint32_t tot = cols[k] + carry;
+      t[k] = tot & kMask;
+      carry = tot >> kRadixBits;
+    }
+    // P = T0 + T1<<2H + (T2 - T1 - T0)<<H: +T_j at its place ...
+    const int shift = j == 0 ? 0 : j == 1 ? 2 * H : H;
+#pragma unroll
+    for (int c = 0; c < 2 * HP; ++c) {
+      if (c + shift < W) acc[c + shift] += t[c];
+    }
+    // ... and, for T0 and T1, -(T_j<<H) as NOT (MASK - placed column,
+    // never wraps) + 1 in column 0; the 2**(16W) wrap is dropped below
+    if (j < 2) {
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        const uint32_t placed = (c >= H && c - H < 2 * HP) ? t[c - H] : 0u;
+        acc[c] += kMask - placed;
+      }
+      acc[0] += 1u;
+    }
+  }
+  // single final-adder pass, truncated to LA+LB limbs
+  limbs::carry_store<W>(acc, la + lb, out + r * (la + lb));
+}
+
+inline dim3 grid_for(int bsz) {
+  return dim3((bsz + limbs::kThreads - 1) / limbs::kThreads);
+}
+
+template <int MAXL>
+cudaError_t launch_fold(bool fb, const uint32_t* a, const uint32_t* b,
+                        uint32_t* out, int bsz, int la, int lb, int ct,
+                        int chunk, cudaStream_t s) {
+  if (fb) {
+    fb_kernel<MAXL><<<grid_for(bsz), limbs::kThreads, 0, s>>>(
+        a, b, out, bsz, la, lb, ct, chunk);
+  } else {
+    ff_kernel<MAXL><<<grid_for(bsz), limbs::kThreads, 0, s>>>(
+        a, b, out, bsz, la, lb, ct, chunk);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t fold(bool fb, const void* a, const void* b, void* out, int bsz,
+                 int la, int lb, int ct, int chunk, void* stream) {
+  auto* pa = static_cast<const uint32_t*>(a);
+  auto* pb = static_cast<const uint32_t*>(b);
+  auto* po = static_cast<uint32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (limbs::bucket(la, lb)) {
+    case 2: return launch_fold<2>(fb, pa, pb, po, bsz, la, lb, ct, chunk, s);
+    case 4: return launch_fold<4>(fb, pa, pb, po, bsz, la, lb, ct, chunk, s);
+    case 8: return launch_fold<8>(fb, pa, pb, po, bsz, la, lb, ct, chunk, s);
+    default: return launch_fold<16>(fb, pa, pb, po, bsz, la, lb, ct, chunk, s);
+  }
+}
+
+template <int N>
+cudaError_t launch_kara(const void* a, const void* b, void* out, int bsz,
+                        int la, int lb, void* stream) {
+  kara_kernel<N><<<grid_for(bsz), limbs::kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), bsz, la, lb);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mcim_fold_fb_launch(const void* a, const void* b, void* out,
+                                   int bsz, int la, int lb, int ct,
+                                   int chunk, void* stream) {
+  return fold(true, a, b, out, bsz, la, lb, ct, chunk, stream);
+}
+
+extern "C" int mcim_fold_ff_launch(const void* a, const void* b, void* out,
+                                   int bsz, int la, int lb, int ct,
+                                   int chunk, void* stream) {
+  return fold(false, a, b, out, bsz, la, lb, ct, chunk, stream);
+}
+
+extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
+                                          void* out, int bsz, int la,
+                                          int lb, void* stream) {
+  int n = la > lb ? la : lb;
+  n += n % 2;
+  switch (n) {
+    case 2: return launch_kara<2>(a, b, out, bsz, la, lb, stream);
+    case 4: return launch_kara<4>(a, b, out, bsz, la, lb, stream);
+    case 6: return launch_kara<6>(a, b, out, bsz, la, lb, stream);
+    case 8: return launch_kara<8>(a, b, out, bsz, la, lb, stream);
+    case 10: return launch_kara<10>(a, b, out, bsz, la, lb, stream);
+    case 12: return launch_kara<12>(a, b, out, bsz, la, lb, stream);
+    case 14: return launch_kara<14>(a, b, out, bsz, la, lb, stream);
+    default: return launch_kara<16>(a, b, out, bsz, la, lb, stream);
+  }
+}

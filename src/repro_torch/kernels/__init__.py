@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+  mcim_fold   per-instance folded multipliers (fb / ff / karatsuba)
+  bank_fold   a whole bank round in one launch
+
+Sources live in ``repro_torch/csrc``; :mod:`._build` compiles them on
+first use and keeps the launch counters.
+"""
+from ._build import launch_counts, reset_launch_counts
+
+__all__ = ["launch_counts", "reset_launch_counts"]

@@ -1,0 +1,13 @@
+"""Fused bank kernel: a whole plan round in one CUDA launch."""
+from .geometry import (FUSED_SCHEDULE, SuperGeometry, fused_ct,
+                       fused_geometry, fused_windows, super_geometry,
+                       vmem_bytes_per_step)
+from .kernel import fused_bank_mul, fused_bank_mul_ref
+from .ops import fused_block_rows, make_fused_dispatch
+
+__all__ = [
+    "FUSED_SCHEDULE", "SuperGeometry", "fused_ct", "fused_geometry",
+    "fused_windows", "super_geometry", "vmem_bytes_per_step",
+    "fused_bank_mul", "fused_bank_mul_ref", "fused_block_rows",
+    "make_fused_dispatch",
+]

@@ -1,0 +1,6 @@
+from .ops import big_mul, vmem_bytes_per_step, batch_tile
+from .kernel import (mcim_fold_mul, mcim_fold_mul_ref, fold_geometry,
+                     FoldGeometry)
+
+__all__ = ["big_mul", "vmem_bytes_per_step", "batch_tile", "mcim_fold_mul",
+           "mcim_fold_mul_ref", "fold_geometry", "FoldGeometry"]

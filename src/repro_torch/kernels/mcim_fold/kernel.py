@@ -1,0 +1,124 @@
+"""Folded big-integer multiply: the CUDA kernels and their plain versions.
+
+Counterpart of the reference's ``kernels/mcim_fold/kernel.py``, whose
+three TPU kernel bodies (``_fb_kernel``, ``_ff_kernel`` and
+``_kara_kernel``) are hand-written CUDA in ``csrc/mcim_fold.cu`` here.
+:func:`mcim_fold_mul` launches the kernel for a CUDA tensor and runs the
+plain PyTorch version (:func:`mcim_fold_mul_ref`, the core folded
+multipliers) for a CPU tensor; nothing else selects between them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import limbs as L
+from repro_torch.core.karatsuba import karatsuba_mul
+from repro_torch.core.schoolbook import feedback_mul, feedforward_mul, \
+    star_mul
+from repro_torch.kernels import _build
+
+SCHEDULES = ("fb", "ff", "karatsuba")
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldGeometry:
+    """Static shape contract of one folded schedule (as in the reference)."""
+    schedule: str       # fb | ff | karatsuba
+    la: int             # A limbs
+    lb: int             # B limbs
+    chunk: int          # B limbs consumed per cycle
+    ct_run: int         # cycles actually folded (<= requested CT)
+    scratch_width: int  # accumulator columns of the reference kernel
+    out_width: int      # retired product limbs
+
+    @property
+    def b_windows(self) -> tuple:
+        """Per-cycle (lo, hi) B-limb windows the PPM consumes (fb/ff)."""
+        return tuple((t * self.chunk, (t + 1) * self.chunk)
+                     for t in range(self.ct_run))
+
+
+def fold_geometry(la: int, lb: int, ct: int,
+                  schedule: str = "fb") -> FoldGeometry:
+    """Static geometry of a folded schedule for (LA, LB) limb operands."""
+    if schedule == "karatsuba":
+        if ct != 3:
+            raise ValueError("the folded Karatsuba schedule is fixed to CT=3")
+        n = max(la, lb)
+        n += n % 2                               # even split point
+        return FoldGeometry(schedule=schedule, la=la, lb=lb,
+                            chunk=n // 2 + 1, ct_run=3,
+                            scratch_width=2 * n, out_width=la + lb)
+    if schedule not in ("fb", "ff"):
+        raise ValueError(f"schedule must be fb, ff or karatsuba, "
+                         f"got {schedule!r}")
+    chunk = -(-lb // ct)
+    # CT > LB leaves trailing all-zero chunks: fold only the LB real limbs
+    ct_run = -(-lb // chunk)
+    if schedule == "fb":
+        scratch = la + chunk + 1                 # M + N/CT folded window
+    else:
+        scratch = la + ct_run * chunk + 1        # full FF register file
+    return FoldGeometry(schedule=schedule, la=la, lb=lb, chunk=chunk,
+                        ct_run=ct_run, scratch_width=scratch,
+                        out_width=la + lb)
+
+
+def _check_schedule(ct: int, schedule: str) -> None:
+    if schedule not in SCHEDULES:
+        raise ValueError(
+            f"schedule must be fb, ff or karatsuba, got {schedule!r}")
+    if schedule == "karatsuba" and ct != 3:
+        raise ValueError("the folded Karatsuba schedule is fixed to CT=3")
+    if schedule == "ff" and ct < 2:
+        raise ValueError("FF is a multi-cycle design: ct >= 2")
+
+
+def mcim_fold_mul_ref(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
+                      schedule: str = "fb") -> torch.Tensor:
+    """Plain version: (B, LA) x (B, LB) -> (B, LA+LB) int32 limbs through
+    the core folded multipliers (FB at CT=1 is the Star multiplier)."""
+    _check_schedule(ct, schedule)
+    if schedule == "fb":
+        return star_mul(a, b) if ct == 1 else feedback_mul(a, b, ct=ct)
+    if schedule == "ff":
+        return feedforward_mul(a, b, ct=ct)
+    # the kernel realizes one folded Karatsuba level over CT=3 with
+    # schoolbook sub-PPMs, i.e. the paper's Karat-1 design
+    return karatsuba_mul(a, b, levels=1, ct=ct)
+
+
+def mcim_fold_mul(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
+                  schedule: str = "fb") -> torch.Tensor:
+    """Batched folded multiply: (B, LA) x (B, LB) -> (B, LA+LB) limbs.
+
+    ``schedule`` picks the paper architecture: "fb" (feedback loop; Star
+    at CT=1), "ff" (feed-forward register file) or "karatsuba" (shared
+    half-width PPM over the fixed CT=3 fold).  A CUDA tensor launches the
+    hand-written kernel; a CPU tensor runs :func:`mcim_fold_mul_ref`.
+    """
+    _check_schedule(ct, schedule)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mcim_fold_mul_ref(a, b, ct=ct, schedule=schedule)
+    name = f"mcim_fold_{schedule}"
+    _build.check_cuda_operands(name, a, b)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"{name}: expected (B, LA) x (B, LB), got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    bsz, la = a.shape
+    lb = b.shape[1]
+    _build.check_limbs(name, la, lb)
+    out = torch.empty((bsz, la + lb), dtype=L.LIMB_DTYPE, device=a.device)
+    if bsz == 0:
+        return out
+    if schedule == "karatsuba":
+        fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 3)
+        _build.launch(name, fn, (a, b, out), (bsz, la, lb))
+    else:
+        geo = fold_geometry(la, lb, ct, schedule)
+        fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 5)
+        _build.launch(name, fn, (a, b, out),
+                      (bsz, la, lb, geo.ct_run, geo.chunk))
+    return out

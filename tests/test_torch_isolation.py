@@ -1,0 +1,50 @@
+"""The PyTorch port stands alone: no jax, nothing of the reference package.
+
+``src/repro_torch/**.py`` and ``chip_smoke.py`` may import torch, numpy,
+the standard library and ``repro_torch`` -- never ``jax`` or ``repro``.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports_in_the_port():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
+           for f in files for line, mod in _imported_roots(f)
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import repro_torch\n"
+            "from repro_torch import designs\n"
+            "from repro_torch.kernels import bank_fold, mcim_fold\n"
+            "d = designs.generate('tp3p5_w32', device='cpu')\n"
+            "assert d.mul(0xDEADBEEF, 0xCAFEBABE) == "
+            "0xDEADBEEF * 0xCAFEBABE\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+            "               for m in sys.modules if sys.modules[m])\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,236 @@
+"""The port's kernels (bank_fold #1; mcim_fold fb #2, ff #3, karatsuba #4).
+
+On the CPU the wrappers run their plain PyTorch versions; those are held
+against the JAX reference's Pallas kernels in interpret mode
+(``repro.kernels.mcim_fold.mcim_fold_mul`` / ``repro.kernels.bank_fold.
+fused_bank_mul``) on the same numpy operands, with integer equality
+(tolerance 0) and the Python-bigint oracle.
+
+Tests marked ``cuda`` hold each hand-written CUDA kernel against its
+plain version on the card, bit for bit; they skip without a card.  The
+JAX reference is imported inside the CPU tests only, so that
+``pytest -m cuda`` runs this file on a machine without jax.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import limbs as TL
+from repro_torch.core import planner as TP
+from repro_torch.kernels import _build
+from repro_torch.kernels import bank_fold as TB
+from repro_torch.kernels import mcim_fold as TF
+
+FOLDS = [("fb", 1), ("fb", 2), ("fb", 3), ("fb", 12), ("ff", 2), ("ff", 4),
+         ("karatsuba", 3)]
+
+
+def _pair(seed, shape, bits_a, bits_b=None):
+    """Operands as numpy uint32 limbs (the reference's random stream)."""
+    rng = np.random.default_rng(seed)
+    return (TL.random_limbs(rng, shape, bits_a),
+            TL.random_limbs(rng, shape, bits_b or bits_a))
+
+
+def _products(a, b):
+    return [TL.from_limbs(x) * TL.from_limbs(y)
+            for x, y in zip(a.reshape(-1, a.shape[-1]),
+                            b.reshape(-1, b.shape[-1]))]
+
+
+@pytest.fixture
+def ref():
+    """The JAX reference's modules (imported here, not at module level)."""
+    import jax.numpy as jnp
+    from repro.core import planner
+    from repro.kernels import bank_fold, mcim_fold
+    return types.SimpleNamespace(jnp=jnp, planner=planner,
+                                 bank_fold=bank_fold, mcim_fold=mcim_fold)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only "
+                    "there (the CPU path is their plain version)")
+    return torch.device("cuda")
+
+
+# ----------------------------------------------- mcim_fold (kernels #2-#4)
+
+@pytest.mark.parametrize("bits", (32, 128, 256))
+@pytest.mark.parametrize("schedule,ct", FOLDS)
+def test_big_mul_plain_matches_reference_kernel(schedule, ct, bits, ref):
+    a, b = _pair(bits + ct, (24,), bits)
+    want = ref.mcim_fold.mcim_fold_mul(
+        ref.jnp.asarray(a), ref.jnp.asarray(b), ct=ct, schedule=schedule,
+        tile_b=8, interpret=True)
+    before = _build.launch_counts()
+    port = TF.big_mul(TL.from_numpy(a, "cpu"), TL.from_numpy(b, "cpu"),
+                      ct=ct, schedule=schedule)
+    assert _build.launch_counts() == before      # CPU: no kernel launch
+    np.testing.assert_array_equal(port.numpy(),
+                                  np.asarray(want).astype(np.int32))
+    assert TL.batch_from_limbs(port) == _products(a, b)
+
+
+def test_big_mul_mixed_widths_and_single_row():
+    a, b = _pair(5, (9,), 48, 80)
+    for schedule, ct in FOLDS:
+        port = TF.big_mul(TL.from_numpy(a, "cpu"), TL.from_numpy(b, "cpu"),
+                          ct=ct, schedule=schedule)
+        assert TL.batch_from_limbs(port) == _products(a, b)
+        one = TF.big_mul(TL.from_numpy(a[0], "cpu"),
+                         TL.from_numpy(b[0], "cpu"), ct=ct,
+                         schedule=schedule)
+        assert one.shape == (a.shape[-1] + b.shape[-1],)
+        assert TL.from_limbs(one) == _products(a, b)[0]
+
+
+def test_mcim_fold_schedule_errors():
+    x = TL.from_numpy(np.ones((2, 2), np.uint32), "cpu")
+    with pytest.raises(ValueError):
+        TF.mcim_fold_mul(x, x, schedule="nope")
+    with pytest.raises(ValueError):
+        TF.mcim_fold_mul(x, x, ct=2, schedule="karatsuba")
+    with pytest.raises(ValueError):
+        TF.mcim_fold_mul(x, x, ct=1, schedule="ff")
+
+
+@pytest.mark.parametrize("la,lb,ct,schedule", [
+    (2, 2, 2, "fb"), (4, 9, 3, "ff"), (1, 10, 3, "fb"), (5, 3, 3,
+                                                          "karatsuba")])
+def test_fold_geometry_matches_reference(la, lb, ct, schedule, ref):
+    want = ref.mcim_fold.fold_geometry(la, lb, ct, schedule)
+    port = TF.fold_geometry(la, lb, ct, schedule)
+    assert port.b_windows == want.b_windows
+    for field in ("chunk", "ct_run", "scratch_width", "out_width"):
+        assert getattr(port, field) == getattr(want, field)
+    for tile in (8, 256):
+        assert TF.vmem_bytes_per_step(la, lb, ct, tile, schedule) == \
+            ref.mcim_fold.vmem_bytes_per_step(la, lb, ct, tile, schedule)
+
+
+@pytest.mark.parametrize("bsz", (1, 7, 55, 56, 97, 256, 1000, 1031))
+def test_batch_tile_matches_reference(bsz, ref):
+    assert TF.batch_tile(bsz) == ref.mcim_fold.batch_tile(bsz)
+
+
+# ------------------------------------------------------- bank_fold (#1)
+
+@pytest.mark.parametrize("bits,tp", [(32, "7/2"), (128, "5/6"),
+                                     (64, "1/2")])
+def test_fused_plain_matches_reference_kernel(bits, tp, ref):
+    """Super-geometries with idle steps (tp3p5_w32: star + fb2;
+    tp5over6_w128: fb2 + karatsuba) through the plain windowed schoolbook
+    and the reference's Pallas kernel."""
+    ref_plan = ref.planner.plan_throughput(bits, bits, tp)
+    port_plan = TP.plan_throughput(bits, bits, tp)
+    ref_cfgs = [c for n, c in ref_plan.configs for _ in range(n)]
+    port_cfgs = [c for n, c in port_plan.configs for _ in range(n)]
+    la = TL.n_limbs_for_bits(bits)
+    ref_sg = ref.bank_fold.super_geometry(ref_cfgs, la, la)
+    port_sg = TB.super_geometry(port_cfgs, la, la)
+    np.testing.assert_array_equal(port_sg.table(), ref_sg.table())
+    a, b = _pair(bits, (port_sg.n_instances, 16), bits)
+    want = ref.bank_fold.fused_bank_mul(
+        ref.jnp.asarray(a), ref.jnp.asarray(b),
+        ref.jnp.asarray(ref_sg.table()), max_steps=ref_sg.max_steps,
+        tile_r=8, interpret=True)
+    before = _build.launch_counts()
+    port = TB.fused_bank_mul(TL.from_numpy(a, "cpu"),
+                             TL.from_numpy(b, "cpu"),
+                             torch.from_numpy(port_sg.table()))
+    assert _build.launch_counts() == before
+    np.testing.assert_array_equal(port.numpy(),
+                                  np.asarray(want).astype(np.int32))
+    assert TL.batch_from_limbs(port) == _products(a, b)
+
+
+def test_fused_idle_and_partial_windows():
+    """A hand-made table: idle (0,0) steps add nothing; a partial window
+    multiplies only its limbs."""
+    a, b = _pair(3, (2, 5), 64)
+    table = torch.tensor([[[0, 4], [0, 0], [0, 0]],
+                          [[2, 4], [0, 0], [0, 1]]], dtype=torch.int32)
+    out = TB.fused_bank_mul(TL.from_numpy(a, "cpu"),
+                            TL.from_numpy(b, "cpu"), table)
+    full, part = out[0], out[1]
+    assert TL.batch_from_limbs(full) == _products(a[0], b[0])
+    b_part = b[1].copy()
+    b_part[:, 1] = 0                 # limb 1 lies in no window
+    assert TL.batch_from_limbs(part) == _products(a[1], b_part)
+
+
+def test_fused_block_rows_match_reference(ref):
+    for assign in (((0, 1, 2), (3,)), ((),), tuple((i,) for i in range(9)),
+                   (tuple(range(57)), tuple(range(57, 70)))):
+        assert TB.fused_block_rows(assign) == \
+            ref.bank_fold.fused_block_rows(assign)
+
+
+def test_fused_shape_errors():
+    x = TL.from_numpy(np.ones((2, 3, 2), np.uint32), "cpu")
+    with pytest.raises(ValueError):
+        TB.fused_bank_mul(x, x[:1],
+                          torch.zeros((2, 1, 2), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        TB.fused_bank_mul(x, x, torch.zeros((3, 1, 2), dtype=torch.int32))
+
+
+def test_kernel_operand_checks():
+    with pytest.raises(ValueError):
+        _build.check_limbs("k", 17, 2)
+    _build.check_limbs("k", 16, 16)
+    with pytest.raises(ValueError):      # a CPU tensor is not a CUDA one
+        _build.check_cuda_operands("k", torch.zeros(2, dtype=torch.int32))
+
+
+# --------------------------------------------------- on the card (cuda)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", (8, 32, 64, 128, 200, 256))
+@pytest.mark.parametrize("schedule,ct", FOLDS)
+def test_fold_kernel_matches_plain_on_card(cuda_device, schedule, ct, bits):
+    a, b = _pair(bits * ct, (1000,), bits)
+    a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    name = f"mcim_fold_{schedule}"
+    before = _build.launch_counts()[name]
+    got = TF.mcim_fold_mul(a, b, ct=ct, schedule=schedule)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    want = TF.mcim_fold_mul_ref(a, b, ct=ct, schedule=schedule)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,tp", [(32, "7/2"), (128, "5/6"), (256, "1/3"),
+                                     (16, "11/12")])
+def test_bank_kernel_matches_plain_on_card(cuda_device, bits, tp):
+    plan = TP.plan_throughput(bits, bits, tp)
+    cfgs = [c for n, c in plan.configs for _ in range(n)]
+    la = TL.n_limbs_for_bits(bits)
+    sg = TB.super_geometry(cfgs, la, la)
+    a, b = _pair(bits, (sg.n_instances, 777), bits)
+    a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    table = torch.from_numpy(sg.table()).to(cuda_device)
+    before = _build.launch_counts()["bank_fold"]
+    got = TB.fused_bank_mul(a, b, table)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["bank_fold"] == before + 1
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    wide = torch.zeros((4, 17), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        TF.mcim_fold_mul(wide, wide, ct=2)
+    small = torch.zeros((4, 2), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        TF.mcim_fold_mul(small, small, ct=2)
+    mixed = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        TF.mcim_fold_mul(mixed.to(cuda_device), mixed, ct=2)
