@@ -20,8 +20,21 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    design and ``mul(0xDEADBEEF, 0xCAFEBABE)`` run too.  Then every
    unsigned design runs again on the per-instance ``kernel`` capability,
    one launch per busy instance.
+   Phase 2 also holds the slice-2 kernels at their paths' full shapes:
+   the prefix adder on the PPM columns of B = 1,048,576 128- and
+   256-bit products, the spatial Karatsuba on B = 1,048,576 128- and
+   256-bit pairs, and the int8 matmul at gemma2-9b's MLP up-projection
+   (K = 3584, N = 14336) for a prefill chunk (M = 2048) and a decode
+   batch (M = 64).
 4. Time whole fused rounds of tp3p5_w32 and tp5over6_w128 at
    B = 1,048,576 with CUDA events.
+5. The slice-2 entry points: ``fast_final_adder(L.ppm(a, b))`` and
+   ``kara_mul(a, b)`` on B = 65,536 128- and 256-bit pairs (equal to
+   each other and to the bigint oracle on 1,024 rows),
+   ``repro_torch.quant.quantized_matmul`` at both gemma2-9b shapes (bit
+   for bit its plain version, within 2% relative error of ``x @ w``),
+   and one ``optim.compress`` round trip of a 3584 x 14336 gradient;
+   each kernel call must add exactly one launch to its counter.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -48,6 +61,13 @@ ORACLE_ROWS = 1_024
 # per clock per SM, 132 SMs, 1.98 GHz boost clock)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT8_TC_OPS_PER_S = 1.979e15       # dense int8 tensor-core peak
+# gemma2-9b MLP up-projection (d_model 3584, d_ff 14336)
+GEMMA_K, GEMMA_N = 3584, 14336
+GEMMA_M = (2048, 64)               # a prefill chunk, a decode batch
+SLICE2_KERNELS = {"prefix_adder", "karatsuba_ppm", "int8_matmul"}
+ALL_KERNELS = {"bank_fold", "mcim_fold_fb", "mcim_fold_ff",
+               "mcim_fold_karatsuba"} | SLICE2_KERNELS
 
 
 def check(cond, msg):
@@ -99,7 +119,19 @@ def packed(x):
 
 def ops_per_row(kernel, la, lb, windows=None, ct_run=1, chunk=1):
     """Integer operations one row needs: 5 per 16x16 limb product (mul,
-    mask, shift, two adds) and 3 per carry-propagated column."""
+    mask, shift, two adds) and 3 per carry-propagated column.  For the
+    prefix adder ``la`` is the row's column count."""
+    if kernel == "prefix_adder":
+        rounds = (la - 1).bit_length()             # ceil(log2 W)
+        # split and fold 4, (g, p, base) 4, 4 a round, carry-in and store 3
+        return la * (11 + 4 * rounds)
+    if kernel == "karatsuba_ppm":
+        h, hp = la // 2, la // 2 + 1
+        return (2 * (h + 3 * hp)                   # A0+A1, B0+B1 and 1CA
+                + 5 * (2 * h * h + hp * hp)        # three PPM passes
+                + 3 * (4 * h + 2 * hp)             # their carry passes
+                + 4 * 2 * la + 1                   # placement, complements
+                + 3 * 2 * la)                      # final adder
     if kernel == "bank_fold":
         width = sum(hi - lo for lo, hi in windows)
         return 5 * la * width + 3 * (la + lb)
@@ -115,9 +147,9 @@ def ops_per_row(kernel, la, lb, windows=None, ct_run=1, chunk=1):
             + 3 * (la + lb))                   # final adder
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -143,27 +175,42 @@ def phase_card():
     return smi
 
 
+def compare(got, want):
+    """(max |got - want|, bit for bit equal): float outputs compare as
+    words of their width (bf16 as int16, float32 as int32)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+          f"{want.dtype}")
+    if got.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+        err = (got.float() - want.float()).abs().max().item()
+        return err, torch.equal(got.view(bits), want.view(bits))
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+    return err, err == 0
+
+
 def kernel_entry(name, route_name, source, replaces, kernel_fn, plain_fn,
-                 args, out_elems, n_ops, extra_bytes=0, library=None):
+                 args, n_ops, library=None, ops_per_s=INT32_OPS_PER_S):
     """Check a kernel against its plain version on the same inputs and
-    time both (and the library call, if any)."""
+    time both (and the library call, if any).  The bound counts each
+    argument read once and the output written once, at their element
+    sizes."""
     got = kernel_fn(*args)
     want = plain_fn(*args)
     torch.cuda.synchronize()
-    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
-    check(err == 0 and got.shape == want.shape,
-          f"{name}: kernel disagrees with its plain version (max abs "
-          f"err {err})")
+    err, same = compare(got, want)
+    check(same, f"{name}: kernel disagrees with its plain version (max "
+          f"abs err {err})")
     ms = cuda_ms(lambda: kernel_fn(*args), iters=20)
     plain_ms = cuda_ms(lambda: plain_fn(*args), iters=3, warmup=1)
     lib_ms = None
     if library is not None:
         lib_ms = cuda_ms(library, iters=20)
-    n_bytes = 4 * (sum(t.numel() for t in args[:2]) + out_elems) \
-        + extra_bytes
-    bound_ms, bound_by = bound(n_bytes, n_ops)
-    print(f"  {name}: rows {args[0].shape[-2]} x limbs "
-          f"{args[0].shape[-1]}x{args[1].shape[-1]}  kernel {ms:.4f} ms  "
+    n_bytes = sum(t.numel() * t.element_size() for t in (*args, got))
+    bound_ms, bound_by = bound(n_bytes, n_ops, ops_per_s)
+    shapes = " x ".join(f"{tuple(t.shape)} {str(t.dtype)[6:]}"
+                        for t in args)
+    print(f"  {name}: {shapes}  kernel {ms:.4f} ms  "
           f"plain {plain_ms:.4f} ms  library "
           f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
           f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B, {n_ops} ops)  "
@@ -206,9 +253,8 @@ def phase_kernels(device):
             "bank_fold" if design_name == "tp3p5_w32"
             else f"bank_fold/{design_name}", "bank_fold", src_bank,
             "src/repro/kernels/bank_fold/kernel.py:44",
-            BF.fused_bank_mul, BF.fused_bank_mul_ref, (a, b, table),
-            sg.n_instances * rows * (d.la + d.lb), ops,
-            extra_bytes=table.numel() * 4, library=lib)
+            BF.fused_bank_mul, BF.fused_bank_mul_ref, (a, b, table), ops,
+            library=lib)
         entries.append(entry)
         rounds[design_name] = entry
 
@@ -242,9 +288,10 @@ def phase_kernels(device):
                     x, y, ct=ct, schedule=s),
                 lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul_ref(
                     x, y, ct=ct, schedule=s),
-                (fa, fb_), n * (d.la + d.lb),
-                n * ops_per_row(key, d.la, d.lb, ct_run=geo.ct_run,
-                                chunk=geo.chunk), library=lib))
+                (fa, fb_), n * ops_per_row(key, d.la, d.lb,
+                                           ct_run=geo.ct_run,
+                                           chunk=geo.chunk),
+                library=lib))
 
     # ff: the strict 32-bit Table VIII point, one CT=2 instance
     d = designs.generate("tbl8_w32_strict", device=device)
@@ -256,13 +303,64 @@ def phase_kernels(device):
         "mcim_fold_ff", "mcim_fold_ff", src_fold, f"{ref_fold}:146",
         lambda x, y: MF.mcim_fold_mul(x, y, ct=cfg.ct, schedule="ff"),
         lambda x, y: MF.mcim_fold_mul_ref(x, y, ct=cfg.ct, schedule="ff"),
-        (fa, fb_), B_TIME * (d.la + d.lb),
-        B_TIME * ops_per_row("mcim_fold_ff", d.la, d.lb),
+        (fa, fb_), B_TIME * ops_per_row("mcim_fold_ff", d.la, d.lb),
         library=lambda: pa * pb))
+    entries += slice2_entries(device, rng)
     names = {e["counter"] for e in entries}
-    check(names == {"bank_fold", "mcim_fold_fb", "mcim_fold_ff",
-                    "mcim_fold_karatsuba"}, f"kernels covered: {names}")
+    check(names == ALL_KERNELS, f"kernels covered: {names}")
     return entries, rounds
+
+
+def gaussian_int8(gen, shape, axis, device):
+    """Quantized Gaussian operands: (int8, float32 scales) along ``axis``."""
+    from repro_torch.quant import quantize_rows
+    x = torch.randn(shape, generator=gen, device=device)
+    return quantize_rows(x, axis=axis)
+
+
+def slice2_entries(device, rng):
+    """The prefix adder, spatial Karatsuba and int8 matmul at the full
+    shapes of their paths."""
+    from repro_torch.core import limbs as L
+    from repro_torch.kernels import int8_matmul as IM
+    from repro_torch.kernels import karatsuba_ppm as KP
+    from repro_torch.kernels import prefix_adder as PA
+    entries = []
+    for bits in (128, 256):
+        a, b = operands(rng, (B_TIME,), bits, device)
+        tag = "" if bits == 128 else f"/{bits}bit"
+        cols = L.ppm(a, b)                   # (B, 2N) int64 columns
+        entries.append(kernel_entry(
+            f"prefix_adder{tag}", "prefix_adder",
+            "src/repro_torch/csrc/prefix_adder.cu",
+            "src/repro/kernels/prefix_adder/kernel.py:29",
+            PA.prefix_final_adder, PA.prefix_final_adder_ref, (cols,),
+            B_TIME * ops_per_row("prefix_adder", cols.shape[1], 0)))
+        del cols
+        n = a.shape[1]
+        entries.append(kernel_entry(
+            f"karatsuba_ppm{tag}", "karatsuba_ppm",
+            "src/repro_torch/csrc/karatsuba_ppm.cu",
+            "src/repro/kernels/karatsuba_ppm/kernel.py:46",
+            KP.karatsuba_ppm_mul, KP.karatsuba_ppm_mul_ref, (a, b),
+            B_TIME * ops_per_row("karatsuba_ppm", n, n)))
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    qw, sw = gaussian_int8(gen, (GEMMA_K, GEMMA_N), 0, device)
+    # the library yardstick: cuBLAS int8 GEMM (int32 out, no scales) on a
+    # column-major copy of w, the layout its int8 path takes
+    qw_cm = qw.t().contiguous().t()
+    for m in GEMMA_M:
+        qx, sx = gaussian_int8(gen, (m, GEMMA_K), 1, device)
+        entries.append(kernel_entry(
+            "int8_matmul" if m == GEMMA_M[0] else f"int8_matmul/m{m}",
+            "int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
+            "src/repro/kernels/int8_matmul/kernel.py:24",
+            IM.int8_matmul, IM.int8_matmul_ref, (qx, qw, sx, sw),
+            2 * m * GEMMA_K * GEMMA_N,
+            library=lambda qx=qx: torch._int_mm(qx, qw_cm),
+            ops_per_s=INT8_TC_OPS_PER_S))
+    return entries
 
 
 def phase_main_path(device):
@@ -364,6 +462,87 @@ def phase_rounds(device, rounds):
               f"{core_ms:.4f} ms")
 
 
+def phase_entry_points(device):
+    """The slice-2 entry points on the card, each kernel call counted."""
+    from repro_torch import quant
+    from repro_torch.core import limbs as L
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.int8_matmul import int8_matmul_ref
+    from repro_torch.kernels.karatsuba_ppm import kara_mul
+    from repro_torch.kernels.prefix_adder import fast_final_adder
+    from repro_torch.optim import compress
+    print(f"phase 5: slice-2 entry points (limb paths at B={B_MAIN})")
+    rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+
+    def once(counter, fn, *args):
+        before = launch_counts()[counter]
+        out = fn(*args)
+        torch.cuda.synchronize()
+        launched = launch_counts()[counter] - before
+        check(launched == 1, f"{fn.__name__}: {launched} {counter} "
+              f"launches for one call")
+        return out
+
+    timed = {}              # timed after the counts are read
+    reset_launch_counts()
+    for bits in (128, 256):
+        a, b = operands(rng, (B_MAIN,), bits, device)
+        prod = once("karatsuba_ppm", kara_mul, a, b)
+        check(L.batch_from_limbs(prod[:ORACLE_ROWS])
+              == oracle(a[:ORACLE_ROWS], b[:ORACLE_ROWS]),
+              f"kara_mul {bits}-bit != bigint oracle")
+        summed = once("prefix_adder", fast_final_adder, L.ppm(a, b))
+        check(torch.equal(summed, prod),
+              f"fast_final_adder(ppm) {bits}-bit != kara_mul")
+        print(f"  {bits}-bit: kara_mul = fast_final_adder(ppm) = oracle")
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # x @ w in full f32
+    w = torch.randn((GEMMA_K, GEMMA_N), generator=gen, device=device)
+    qw, sw = quant.quantize_rows(w, axis=0)
+    for m in GEMMA_M:
+        x = torch.randn((m, GEMMA_K), generator=gen, device=device)
+        got = once("int8_matmul", quant.quantized_matmul, x, w)
+        qx, sx = quant.quantize_rows(x, axis=1)
+        want = int8_matmul_ref(qx, qw, sx, sw)
+        check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"quantized_matmul M={m} != int8_matmul_ref")
+        exact = x @ w
+        rel = ((got.float() - exact).norm() / exact.norm()).item()
+        check(rel < 0.02, f"quantized_matmul M={m}: relative error {rel}")
+        print(f"  quantized_matmul ({m}, {GEMMA_K}) @ ({GEMMA_K}, "
+              f"{GEMMA_N}): = plain bit for bit, relative error {rel:.5f} "
+              f"vs x @ w")
+        timed[f"quantized_matmul M={m}"] = \
+            lambda x=x: quant.quantized_matmul(x, w)
+        timed[f"  quantize_rows(x) M={m}"] = \
+            lambda x=x: quant.quantize_rows(x, axis=1)
+    timed["  quantize_rows(w)"] = lambda: quant.quantize_rows(w, axis=0)
+    del qw, exact
+
+    g = torch.randn((GEMMA_K, GEMMA_N), generator=gen, device=device)
+    grads = {"mlp_up": g}
+    qs, ss, err = compress.compress_grads(grads, compress.init_error(grads))
+    back = compress.decompress_grads(qs, ss, grads)["mlp_up"]
+    check(qs["mlp_up"].dtype == torch.int8 and back.shape == g.shape,
+          "compress: dtype or shape")
+    step = ss["mlp_up"][:, None]
+    worst = ((back - g).abs() / step).max().item()
+    check(worst <= 0.5 * (1 + 2**-10), f"compress: error {worst} steps")
+    check(torch.equal(err["mlp_up"], g - back),
+          "compress: the error buffer is not the residual")
+    print(f"  compress round trip {tuple(g.shape)}: worst error {worst:.6f} "
+          f"steps, error buffer = residual")
+    counts = launch_counts()
+    print(f"  entry-point launches: {counts}")
+    timed["compress_grads + decompress_grads"] = lambda: \
+        compress.decompress_grads(*compress.compress_grads(grads, err)[:2],
+                                  grads)
+    for label, fn in timed.items():      # CUDA events, mean of 5 calls
+        print(f"  time {label}: {cuda_ms(fn, iters=5, warmup=1):.4f} ms")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -374,12 +553,14 @@ def main():
     smi = phase_card()
     entries, rounds = phase_kernels(device)
     fused_counts, kernel_counts = phase_main_path(device)
-    for e in entries:
-        counts = fused_counts if e["counter"] == "bank_fold" \
-            else kernel_counts
-        e["launches"] = counts[e.pop("counter")]
-        check(e["launches"] > 0, f"{e['name']}: never launched on the path")
     phase_rounds(device, rounds)
+    entry_counts = phase_entry_points(device)
+    for e in entries:
+        counter = e.pop("counter")
+        counts = (fused_counts if counter == "bank_fold" else entry_counts
+                  if counter in SLICE2_KERNELS else kernel_counts)
+        e["launches"] = counts[counter]
+        check(e["launches"] > 0, f"{e['name']}: never launched on the path")
     print(f"total {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

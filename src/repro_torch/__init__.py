@@ -6,8 +6,10 @@ It imports torch, numpy and the standard library only.  Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``; on the
 card every bank round goes through hand-written CUDA kernels
 (:mod:`repro_torch.kernels`), on the CPU through their plain PyTorch
-versions.
+versions.  :mod:`repro_torch.quant` (int8 matmul) and
+:mod:`repro_torch.optim` (int8 gradient compression) follow the same
+rule: CUDA tensors launch the kernels, CPU tensors take the plain path.
 """
-from . import core, designs, kernels
+from . import core, designs, kernels, optim, quant
 
-__all__ = ["core", "designs", "kernels"]
+__all__ = ["core", "designs", "kernels", "optim", "quant"]

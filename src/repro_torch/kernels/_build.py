@@ -27,7 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: one shared library per source file
-SOURCES = ("bank_fold", "mcim_fold")
+SOURCES = ("bank_fold", "mcim_fold", "prefix_adder", "karatsuba_ppm",
+           "int8_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: widest operand (limbs) the kernels take: 256-bit operands
@@ -37,7 +38,8 @@ _LIBS: dict = {}
 _FNS: dict = {}
 #: per-kernel launch counters (see module docstring)
 LAUNCHES = {"bank_fold": 0, "mcim_fold_fb": 0, "mcim_fold_ff": 0,
-            "mcim_fold_karatsuba": 0}
+            "mcim_fold_karatsuba": 0, "prefix_adder": 0, "karatsuba_ppm": 0,
+            "int8_matmul": 0}
 
 
 def _nvcc() -> str:
@@ -129,14 +131,16 @@ def launch(kernel: str, fn, tensors, ints) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
-def check_cuda_operands(name: str, *tensors) -> None:
-    """Raise on operands the kernels do not take: not on CUDA, not
-    int32, or not contiguous."""
+def check_cuda_operands(name: str, *tensors,
+                        dtype: torch.dtype = torch.int32) -> None:
+    """Raise on operands the kernels do not take: not on CUDA, not of
+    ``dtype`` (int32 limbs unless a kernel says otherwise), or not
+    contiguous."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: operand on {t.device}, not CUDA")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name}: operands must be int32 limbs, "
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: operands must be {dtype}, "
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")

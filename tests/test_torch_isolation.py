@@ -26,7 +26,13 @@ def test_no_jax_or_reference_imports_in_the_port():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    bad = [f"{f.relative_to(ROOT)}:{line}: {mod}"
+    port = ROOT / "src" / "repro_torch"
+    for sub in ("core", "core/bank", "designs", "kernels/bank_fold",
+                "kernels/mcim_fold", "kernels/prefix_adder",
+                "kernels/karatsuba_ppm", "kernels/int8_matmul", "quant",
+                "optim"):
+        assert any(f.parent == port / sub for f in files), sub
+    bad =[f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_roots(f)
            if mod in FORBIDDEN]
     assert not bad, bad
@@ -39,9 +45,25 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch\n"
             "from repro_torch import designs\n"
             "from repro_torch.kernels import bank_fold, mcim_fold\n"
+            "from repro_torch.kernels import int8_matmul, karatsuba_ppm, "
+            "prefix_adder\n"
+            "from repro_torch import quant\n"
+            "from repro_torch.optim import compress\n"
+            "import torch\n"
             "d = designs.generate('tp3p5_w32', device='cpu')\n"
             "assert d.mul(0xDEADBEEF, 0xCAFEBABE) == "
             "0xDEADBEEF * 0xCAFEBABE\n"
+            "a = torch.tensor([[0xBEEF, 0xDEAD]], dtype=torch.int32)\n"
+            "p = karatsuba_ppm.kara_mul(a, a)\n"
+            "from repro_torch.core import limbs as L\n"
+            "assert torch.equal(prefix_adder.fast_final_adder(L.ppm(a, a)), "
+            "p)\n"
+            "assert L.from_limbs(p[0]) == 0xDEADBEEF ** 2\n"
+            "x = torch.eye(4)\n"
+            "assert torch.equal(quant.quantized_matmul(x, x).float(), x)\n"
+            "g = {'w': x}\n"
+            "q, s, e = compress.compress_grads(g, compress.init_error(g))\n"
+            "assert torch.equal(compress.decompress_grads(q, s, g)['w'], x)\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

@@ -1,4 +1,5 @@
-"""The port's kernels (bank_fold #1; mcim_fold fb #2, ff #3, karatsuba #4).
+"""The port's kernels (bank_fold #1; mcim_fold fb #2, ff #3, karatsuba #4;
+prefix_adder #5, karatsuba_ppm #6, int8_matmul #7).
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the JAX reference's Pallas kernels in interpret mode
@@ -7,7 +8,10 @@ fused_bank_mul``) on the same numpy operands, with integer equality
 (tolerance 0) and the Python-bigint oracle.
 
 Tests marked ``cuda`` hold each hand-written CUDA kernel against its
-plain version on the card, bit for bit; they skip without a card.  The
+plain version on the card, bit for bit (bf16 outputs compared as bits);
+they skip without a card.  The CPU parity tests of #5-#7 are in
+``test_torch_prefix_adder.py``, ``test_torch_karatsuba_ppm.py`` and
+``test_torch_quant.py``.  The
 JAX reference is imported inside the CPU tests only, so that
 ``pytest -m cuda`` runs this file on a machine without jax.
 """
@@ -21,7 +25,10 @@ from repro_torch.core import limbs as TL
 from repro_torch.core import planner as TP
 from repro_torch.kernels import _build
 from repro_torch.kernels import bank_fold as TB
+from repro_torch.kernels import int8_matmul as TI
+from repro_torch.kernels import karatsuba_ppm as TK
 from repro_torch.kernels import mcim_fold as TF
+from repro_torch.kernels import prefix_adder as TPA
 
 FOLDS = [("fb", 1), ("fb", 2), ("fb", 3), ("fb", 12), ("ff", 2), ("ff", 4),
          ("karatsuba", 3)]
@@ -234,3 +241,97 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     mixed = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError):
         TF.mcim_fold_mul(mixed.to(cuda_device), mixed, ct=2)
+
+
+def _counted(name, fn, *args, **kwargs):
+    """Run ``fn`` on the card and assert it launched ``name`` once."""
+    before = _build.launch_counts()[name]
+    got = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", (1, 2, 4, 16, 17, 32, 33, 64))
+def test_prefix_adder_kernel_matches_plain_on_card(cuda_device, width):
+    rng = np.random.default_rng(width)
+    cols = rng.integers(0, 2**32 - 2**16, (1000, width), dtype=np.int64)
+    cols[:7] = TL.MASK                   # full-width ripples
+    cols[:7, 0] += 1
+    cols = torch.from_numpy(cols).to(cuda_device)
+    got = _counted("prefix_adder", TPA.fast_final_adder, cols)
+    assert torch.equal(got, TPA.prefix_final_adder_ref(cols))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", (128, 256))
+def test_prefix_adder_kernel_on_ppm_columns(cuda_device, bits):
+    a, b = _pair(bits, (999,), bits)
+    a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    got = _counted("prefix_adder", TPA.fast_final_adder, TL.ppm(a, b))
+    assert TL.batch_from_limbs(got) == _products(a.cpu().numpy(),
+                                                 b.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2, 4, 6, 8, 10, 12, 14, 16))
+def test_karatsuba_ppm_kernel_matches_plain_on_card(cuda_device, n):
+    a, b = _pair(n, (1000,), 16 * n)
+    a[:3], b[:3] = TL.MASK, TL.MASK      # all-ones operands
+    a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    got = _counted("karatsuba_ppm", TK.kara_mul, a, b)
+    assert torch.equal(got, TK.karatsuba_ppm_mul_ref(a, b))
+    assert TL.batch_from_limbs(got[:64]) == _products(
+        a[:64].cpu().numpy(), b[:64].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (33, 70, 45), (1, 1, 1),
+                                   (128, 4096, 130), (300, 129, 257),
+                                   (2048, 3584, 512)])
+@pytest.mark.parametrize("out_dtype", (torch.bfloat16, torch.float32))
+def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, m, k, n,
+                                                  out_dtype):
+    rng = np.random.default_rng(m * k + n)
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    sx = torch.from_numpy(rng.random(m, dtype=np.float32) + 0.01)
+    sw = torch.from_numpy(rng.random(n, dtype=np.float32) + 0.01)
+    args = [t.to(cuda_device) for t in (x, w, sx, sw)]
+    got = _counted("int8_matmul", TI.int8_matmul, *args,
+                   out_dtype=out_dtype)
+    want = TI.int8_matmul_ref(*args, out_dtype=out_dtype)
+    assert got.dtype == want.dtype == out_dtype
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_launches_the_kernel_on_card(cuda_device):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((96, 200), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((200, 72), dtype=np.float32))
+    x, w = x.to(cuda_device), w.to(cuda_device)
+    got = _counted("int8_matmul", TI.quantized_matmul, x, w)
+    want = TI.quantized_matmul(x, w, use_kernel=False)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    cpu = TI.quantized_matmul(x.cpu(), w.cpu())
+    assert torch.equal(got.cpu().view(torch.int16), cpu.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
+    wide = torch.zeros((4, 65), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        TPA.prefix_final_adder(wide)
+    with pytest.raises(ValueError):                 # int32 columns
+        TPA.prefix_final_adder(wide[:, :8].to(torch.int32))
+    limbs = torch.zeros((4, 18), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        TK.karatsuba_ppm_mul(limbs, limbs)
+    x = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
+    s = torch.ones(4, device=cuda_device)
+    with pytest.raises(ValueError):                 # not int8
+        TI.int8_matmul(x, x.T.contiguous(), s, torch.ones(4, device=
+                                                          cuda_device))
