@@ -5,12 +5,17 @@
 
 Phases (any failure ends the run with a non-zero exit; none is caught):
 
-1. Print the card (``nvidia-smi`` name and power limit) and build the
-   hand-written CUDA kernels from ``src/repro_torch/csrc``.
+1. Print the card (``nvidia-smi`` name and power limit), build the
+   hand-written CUDA kernels from ``src/repro_torch/csrc`` and print
+   each kernel's registers, spills and ptxas warnings (``-Xptxas -v``),
+   and the int8 wgmma kernels' dynamic shared memory.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes (per-instance row counts of a
    B = 1,048,576 round), and time kernel, plain version and, where one
-   exists, a single PyTorch call computing the same function.
+   exists, a single PyTorch call computing the same function.  Kernel
+   and library times are device times: 20 calls captured in one CUDA
+   graph and replayed, so no host work sits between launches; the older
+   figure (20 calls launched from Python) is printed beside them.
 3. The main path: for each of the 13 registry designs,
    ``repro_torch.designs.generate(name)`` (auto: the fused capability)
    multiplies B = 65,536 operand pairs at the design's full width,
@@ -25,7 +30,9 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    256-bit products, the spatial Karatsuba on B = 1,048,576 128- and
    256-bit pairs, and the int8 matmul at gemma2-9b's MLP up-projection
    (K = 3584, N = 14336) for a prefill chunk (M = 2048) and a decode
-   batch (M = 64).
+   batch (M = 64), where the wgmma kernel that ``int8_matmul`` picks is
+   also timed against the mma.sync kernel on the same inputs; then both
+   wgmma tile shapes over M = 1 to 512, where ``kernel_path`` switches.
 4. Time whole fused rounds of tp3p5_w32 and tp5over6_w128 at
    B = 1,048,576 with CUDA events.
 5. The slice-2 entry points: ``fast_final_adder(L.ppm(a, b))`` and
@@ -43,6 +50,7 @@ checkout, it exits non-zero and prints no result.
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -82,7 +90,8 @@ def operands(rng, shape, bits, device):
 
 
 def cuda_ms(fn, iters, warmup=2):
-    """Mean milliseconds per call over ``iters`` calls, CUDA events."""
+    """Mean milliseconds per call over ``iters`` calls launched from
+    Python, CUDA events: for a short kernel, the host's cost per call."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -94,6 +103,29 @@ def cuda_ms(fn, iters, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """Device milliseconds per call: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so the host's
+    per-call cost (wrapper, allocation, launch) is out of the figure."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (calls * replays)
 
 
 def oracle(a, b, signed=False):
@@ -168,11 +200,59 @@ def phase_card():
     _build.build()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s")
     for name in _build.SOURCES:
-        regs = [line.split(":")[-1].strip()
-                for line in _build.build_log(name).splitlines()
-                if "Used" in line and "registers" in line]
-        print(f"  {name}: {len(regs)} kernels; {'; '.join(regs)}")
+        kernels = ptxas_report(_build.build_log(name))
+        print(f"  {name}: {len(kernels)} kernels")
+        for line in kernels:
+            print(f"    {line}")
+    lib = _build.library("int8_matmul")
+    from repro_torch.kernels.int8_matmul import PATHS
+    print("  int8_matmul dynamic shared memory a block: " + ", ".join(
+        f"{p} {lib.int8_matmul_smem(i)} B" for i, p in enumerate(PATHS)))
     return smi
+
+
+def kernel_name(mangled):
+    """A short name for a mangled kernel: its identifier, the integers of
+    its template arguments in brackets, and its output type if any."""
+    names, i = [], 0
+    while i < len(mangled):                 # length-prefixed identifiers
+        digits = re.match(r"\d+", mangled[i:])
+        if digits:
+            i += len(digits.group())
+            names.append(mangled[i:i + int(digits.group())])
+            i += int(digits.group())
+        else:
+            i += 1
+    base = next((n for n in names if n.endswith("kernel")), mangled)
+    ints = re.findall(r"Li(\d+)E", mangled)
+    out_t = ("bf16" if "bfloat16" in mangled else
+             "f32" if f"{base}If" in mangled else "")
+    return (base + (f"<{','.join(ints)}>" if ints else "")
+            + (f" {out_t}" if out_t else ""))
+
+
+def ptxas_report(log):
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its short name,
+    registers, static shared memory, stack and spills, and ptxas's
+    warnings about it."""
+    info, warns, order = {}, {}, []
+    cur = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        warn = re.search(r"\((C7\d+)\) (.*) for the function '(\w+)'",
+                         line)
+        if warn:
+            warns.setdefault(warn.group(3), []).append(
+                f"{warn.group(1)} {warn.group(2)}")
+        elif entry:
+            cur = entry.group(1)
+            order.append(cur)
+            info[cur] = []
+        elif cur is not None and ("spill" in line or "Used" in line):
+            info[cur].append(line.split(":", 1)[-1].strip())
+    return [f"{kernel_name(k)}: {'; '.join(info[k])}"
+            + (f"  WARNING {' | '.join(warns[k])}" if k in warns else "")
+            for k in order]
 
 
 def compare(got, want):
@@ -201,18 +281,21 @@ def kernel_entry(name, route_name, source, replaces, kernel_fn, plain_fn,
     err, same = compare(got, want)
     check(same, f"{name}: kernel disagrees with its plain version (max "
           f"abs err {err})")
-    ms = cuda_ms(lambda: kernel_fn(*args), iters=20)
+    loop_ms = cuda_ms(lambda: kernel_fn(*args), iters=20)
+    ms = graph_ms(lambda: kernel_fn(*args))
     plain_ms = cuda_ms(lambda: plain_fn(*args), iters=3, warmup=1)
-    lib_ms = None
+    lib_ms = lib_loop_ms = None
     if library is not None:
-        lib_ms = cuda_ms(library, iters=20)
+        lib_loop_ms = cuda_ms(library, iters=20)
+        lib_ms = graph_ms(library)
     n_bytes = sum(t.numel() * t.element_size() for t in (*args, got))
     bound_ms, bound_by = bound(n_bytes, n_ops, ops_per_s)
     shapes = " x ".join(f"{tuple(t.shape)} {str(t.dtype)[6:]}"
                         for t in args)
-    print(f"  {name}: {shapes}  kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  library "
-          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+    lib = ("none" if lib_ms is None else
+           f"{lib_ms:.4f} ms [loop {lib_loop_ms:.4f}]")
+    print(f"  {name}: {shapes}  kernel {ms:.4f} ms [loop {loop_ms:.4f}]  "
+          f"plain {plain_ms:.4f} ms  library {lib}  bound "
           f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B, {n_ops} ops)  "
           f"max_abs_err {err}")
     return {"name": name, "route": "cuda", "source": source,
@@ -352,14 +435,46 @@ def slice2_entries(device, rng):
     qw_cm = qw.t().contiguous().t()
     for m in GEMMA_M:
         qx, sx = gaussian_int8(gen, (m, GEMMA_K), 1, device)
-        entries.append(kernel_entry(
+        args = (qx, qw, sx, sw)
+        entry = kernel_entry(
             "int8_matmul" if m == GEMMA_M[0] else f"int8_matmul/m{m}",
             "int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
             "src/repro/kernels/int8_matmul/kernel.py:24",
-            IM.int8_matmul, IM.int8_matmul_ref, (qx, qw, sx, sw),
+            IM.int8_matmul, IM.int8_matmul_ref, args,
             2 * m * GEMMA_K * GEMMA_N,
             library=lambda qx=qx: torch._int_mm(qx, qw_cm),
-            ops_per_s=INT8_TC_OPS_PER_S))
+            ops_per_s=INT8_TC_OPS_PER_S)
+        # the same inputs through the mma.sync kernel, on the same card
+        entry["path"] = IM.kernel_path(m, GEMMA_K, GEMMA_N)
+        check(entry["path"] != "mma_sync", f"M={m}: no wgmma path")
+        old = lambda args=args: IM.int8_matmul_kernel(  # noqa: E731
+            *args, path="mma_sync")
+        err, same = compare(old(), IM.int8_matmul_ref(*args))
+        check(same, f"int8 mma_sync M={m} disagrees (max abs err {err})")
+        entry["mma_sync_ms"] = graph_ms(old)
+        print(f"    {entry['path']} {entry['ms']:.4f} ms vs mma_sync "
+              f"{entry['mma_sync_ms']:.4f} ms [loop "
+              f"{cuda_ms(old, iters=20):.4f}] vs torch._int_mm "
+              f"{entry['library_ms']:.4f} ms; bound {entry['bound_ms']:.4f}"
+              f" ms: {entry['bound_ms'] / entry['ms']:.1%} of bound, "
+              f"{entry['ms'] / entry['library_ms']:.2f}x torch._int_mm")
+        entries.append(entry)
+
+    # where kernel_path switches from decode to prefill tiles: both wgmma
+    # paths on the same inputs, device times
+    for m in (1, 64, 65, 128, 256, 512):
+        qx, sx = gaussian_int8(gen, (m, GEMMA_K), 1, device)
+        args = (qx, qw, sx, sw)
+        want = IM.int8_matmul_ref(*args)
+        times = {}
+        for path in ("wgmma_decode", "wgmma_prefill"):
+            run = lambda p=path: IM.int8_matmul_kernel(  # noqa: E731
+                *args, path=p)
+            check(compare(run(), want)[1], f"int8 {path} M={m} disagrees")
+            times[path] = graph_ms(run)
+        print(f"    M={m}: kernel_path picks "
+              f"{IM.kernel_path(m, GEMMA_K, GEMMA_N)}; " + ", ".join(
+                  f"{p} {t:.4f} ms" for p, t in times.items()))
     return entries
 
 

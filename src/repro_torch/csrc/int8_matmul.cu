@@ -6,27 +6,63 @@
 // for x (M, K) and w (K, N) int8, both row-major, sx (M,) and sw (N,)
 // float32, out (M, N) bfloat16 or float32.
 //
-// Design. The TPU grid (i, j, k) runs its k axis in order, the int32
-// accumulator in VMEM scratch. Here a block of 8 warps owns a 128 x 128
-// output tile and loops over K in steps of 64; the accumulators live in
-// registers (each warp a 64 x 32 sub-tile, 64 int32 a thread), and the
-// products are tensor-core mma.sync.m16n8k32 s8 x s8 -> s32. The B operand
-// of that instruction wants k contiguous for each n, while w is (K, N)
-// row-major, so each w tile is transposed in 4 x 4-byte blocks with
-// __byte_perm on its way into shared memory. The next tile's global loads
-// are issued before the current tile's MMAs, so they overlap. Ragged M, N
-// and K edges are zero-filled on load and masked on store: every shape
-// runs here (the reference drops to its plain version for shapes that are
-// not a multiple of its blocks).
+// Two kernels; the caller (kernels/int8_matmul/kernel.py kernel_path)
+// picks one from (M, K, N, alignment) and passes it as `path`.
 //
-// Epilogue in the reference's order: __int2float_rn(acc), times sx[i],
-// times sw[j] (__fmul_rn, no contraction), then __float2bfloat16_rn (or
-// the float itself), so the kernel equals its plain version bit for bit:
-// the int32 sum is exact in both.
+// 1. int8_wgmma_kernel (paths 1 and 2): every shape with K and N
+//    multiples of 16 and 16-byte aligned operands, the strides and
+//    addresses TMA takes. Hopper's int8 tensor-core path is wgmma, and
+//    for 8-bit types wgmma takes both operands K-major only (no transpose
+//    immediates). x (M, K) is K-major; w (K, N) row-major is N-major. Of
+//    the two ways round that (transpose w's tile in shared memory for an
+//    SS wgmma, or swap the operands), the kernel swaps: it computes
+//    out^T = w^T x^T. B = x^T is the x tile exactly as TMA lands it
+//    (K-major, 128-byte swizzle), and wgmma's N is the tile's count of x
+//    rows; A = w^T (an m64 block is 64 columns of w) comes from
+//    registers. That costs no shared-memory writes and no pre-pass over
+//    w, and N = 64 fits a decode batch with no padding. w's tile lands
+//    N-major; each thread reads pieces of 4 k rows x 4 (or 2) adjacent
+//    columns and transposes them with __byte_perm into its A fragments.
+//    The 4 columns of a piece feed rows g, g + 8 of two m64 blocks (the 2
+//    columns: of one), so A's rows are w's columns in a fixed permutation
+//    and each thread's accumulators hold adjacent output columns of a
+//    row: the epilogue stores them straight to `out` (4 to 16 bytes a
+//    thread, 32 to 128 contiguous bytes a row per warp), with no pass
+//    through shared memory. Lanes read their four k rows in an order that
+//    depends on t (the lane's k group), so the four k groups of a warp
+//    fall on distinct 16-byte chunks of the swizzle: the fragment reads
+//    are free of bank conflicts.
+//    A producer thread keeps a ring of stages (128 k each) in flight with
+//    cp.async.bulk.tensor, one full and one empty mbarrier a stage; its
+//    warpgroup hands its registers to the consumers (setmaxnreg);
+//    consumer warpgroups wait for a full stage, run 4 x (1 or 2)
+//    wgmma.m64nNk32 s8.s8.s32 from it, and release it once the wgmmas
+//    that read it have retired. TMA zero-fills the ragged M, N and K
+//    edges; the epilogue masks M and N.
+//    Path 2, prefill tiles (gemma2-9b's prefill chunk, M = 2048,
+//    K = 3584, N = 14336: bound by operations, 2MNK at the int8 peak is
+//    0.106 ms): 256 columns of w (two consumer warpgroups of 128) x 128
+//    rows of x a block, 4 stages of 48 KB, one block an SM, 232
+//    registers a consumer; the 16 x 56 grid runs x tiles fastest, so a
+//    wave shares its w columns and all of x in L2.
+//    Path 1, decode tiles (M <= 64, e.g. gemma2-9b's decode batch of 64:
+//    bound by the bytes of w, 0.016 ms at HBM rate): 64 columns x 64
+//    rows a block, one consumer warpgroup, 6 stages of 16 KB, two blocks
+//    an SM, so the 224 blocks of N = 14336 all stream w at once on every
+//    SM (192 KB in flight an SM). Above M = 64 these tiles would
+//    re-read w once per 64 rows, and the prefill tiles are faster.
+// 2. int8_matmul_kernel (path 0): every other shape (K or N not a
+//    multiple of 16, unaligned operands, K = 0). A block of 8 warps owns a
+//    128 x 128 tile and loops over K in steps of 64 with mma.sync.m16n8k32
+//    s8 x s8 -> s32; w is transposed in 4 x 4-byte blocks with __byte_perm
+//    on its way into shared memory; loads zero-fill and stores mask the
+//    ragged edges.
 //
-// Bound: at the gemma2-9b MLP up-projection (K = 3584, N = 14336) with
-// M = 2048 the tensor-core operations (2MNK over the int8 peak); with
-// M = 64 the bytes of w.
+// Both use the reference's epilogue order: __int2float_rn(acc), times
+// sx[i], times sw[j] (__fmul_rn, no contraction), then
+// __float2bfloat16_rn (or the float itself), so either equals the plain
+// version bit for bit: the int32 sum is exact in any order.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -209,9 +245,9 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 template <typename OutT>
-cudaError_t launch(const void* x, const void* w, const void* sx,
-                   const void* sw, void* out, int m, int k, int n,
-                   void* stream) {
+cudaError_t launch_mma_sync(const void* x, const void* w, const void* sx,
+                            const void* sw, void* out, int m, int k, int n,
+                            void* stream) {
   const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
   // 4-byte loads need rows that start on 4-byte boundaries
   const bool vec_x = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
@@ -224,16 +260,483 @@ cudaError_t launch(const void* x, const void* w, const void* sx,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- wgmma + TMA kernel
+
+constexpr int kTileK = 128;       // k bytes a stage: one 128-byte x row
+
+// kRows: x rows a tile (wgmma N); kGroups: consumer warpgroups; kSub:
+// m64 blocks a warpgroup (its w columns: 64 kSub); kMinBlocks: blocks an
+// SM; kConsumerRegs: registers a consumer thread takes from the producer
+template <int Rows, int Groups, int Sub, int Stages, int MinBlocks,
+          int ConsumerRegs>
+struct WgmmaConfig {
+  static constexpr int kRows = Rows, kGroups = Groups, kSub = Sub;
+  static constexpr int kStages = Stages, kMinBlocks = MinBlocks;
+  // + a producer warpgroup, so that setmaxnreg can move its registers
+  // to the consumers (it acts on whole warpgroups)
+  static constexpr int kThreads = 128 * (kGroups + 1);
+  static constexpr int kProducerRegs = 40, kConsumerRegs = ConsumerRegs;
+  static constexpr int kWgCols = 64 * kSub;
+  static constexpr int kWTileBytes = kTileK * kWgCols;
+  static constexpr int kStageBytes = kGroups * kWTileBytes + kRows * kTileK;
+  static constexpr int kBarBytes = 2 * kStages * 8;
+  // + 1 KB to align the ring to the 128-byte swizzle's 1 KB atom
+  static constexpr int kSmem = kStages * kStageBytes + kBarBytes + 1024;
+  static constexpr int kCols = kGroups * kWgCols;
+  static_assert(kSub == 1 || kSub == 2, "one or two m64 blocks");
+  static_assert(kConsumerRegs * kGroups + kProducerRegs <=
+                    65536 / 128 / kMinBlocks,
+                "setmaxnreg asks for more registers than the SM holds");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// 2-d TMA load of the box at (c0 inner, c1 outer) into shared memory,
+// completing `bytes` on the mbarrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte
+// swizzle: rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO), LBO
+// unused by this layout.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
+               : "memory");
+}
+
+// Keep the compiler from moving accesses of an accumulator across the
+// asynchronous wgmmas that own it.
+template <int kN>
+__device__ __forceinline__ void fence_regs(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// D (m64 x N, s32) += A (m64 x k32, s8, registers) * B (k32 x N, s8,
+// K-major in shared memory).
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int kRows>
+__device__ __forceinline__ void wgmma_rs(int (&d)[kRows / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (kRows == 64) {
+    wgmma_n64(d, a, desc_b);
+  } else {
+    wgmma_n128(d, a, desc_b);
+  }
+}
+
+__device__ __forceinline__ void store_cols(__nv_bfloat16* o,
+                                           const float (&v)[2]) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
+}
+
+__device__ __forceinline__ void store_cols(__nv_bfloat16* o,
+                                           const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 bits;
+  bits.x = *reinterpret_cast<const uint32_t*>(&lo);
+  bits.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(o) = bits;
+}
+
+__device__ __forceinline__ void store_cols(float* o, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+}
+
+__device__ __forceinline__ void store_cols(float* o, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <typename OutT, typename Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, Cfg::kMinBlocks)
+int8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const float* __restrict__ sx, const float* __restrict__ sw,
+                  OutT* __restrict__ out, int m, int k, int n) {
+  constexpr int kRows = Cfg::kRows, kGroups = Cfg::kGroups;
+  constexpr int kSub = Cfg::kSub, kStages = Cfg::kStages;
+  constexpr int kWgCols = Cfg::kWgCols, kWTileBytes = Cfg::kWTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint8_t* ring_ptr = smem_raw + (ring - raw);
+  const uint32_t bars = ring + kStages * Cfg::kStageBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kStages + s); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * kRows;
+  const int n0 = blockIdx.y * Cfg::kCols;
+  const int k_tiles = (k + kTileK - 1) / kTileK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);                // the producer's expect_tx
+      mbar_init(empty(s), 4 * kGroups);     // one arrive a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kGroups) {
+    // producer warpgroup: gives up its registers; one thread keeps the
+    // ring full
+    regs_dec<Cfg::kProducerRegs>();
+    if (warp == 4 * kGroups && lane == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        mbar_wait(empty(s), phase ^ 1u);
+        const uint32_t stage = ring + s * Cfg::kStageBytes;
+        mbar_expect_tx(full(s), Cfg::kStageBytes);
+#pragma unroll
+        for (int h = 0; h < kGroups; ++h) {
+          tma_load(stage + h * kWTileBytes, &wmap, full(s), n0 + h * kWgCols,
+                   kt * kTileK);
+        }
+        tma_load(stage + kGroups * kWTileBytes, &xmap, full(s), kt * kTileK,
+                 m0);
+        if (++s == kStages) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup grp owns w columns n0 + kWgCols grp ..
+  regs_inc<Cfg::kConsumerRegs>();
+  const int grp = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  // A thread owns the w columns cb .. cb + 2 kSub - 1 of its warpgroup:
+  // rows g and g + 8 of each m64 block. It reads them as (2 kSub)-byte
+  // pieces of 4 k rows and transposes those with __byte_perm. Lane t
+  // reads its 4 k rows in the order step ^ swap, so at every step the
+  // warp's 4 k groups sit on rows {0, 4, 2, 6} + step mod 8 of the
+  // swizzle, on distinct 16-byte chunks: no bank conflict.
+  const int cb = (2 * kSub) * (8 * wi + g);
+  const int swap = (t >> 1) << 1;
+  uint32_t off[4];
+#pragma unroll
+  for (int step = 0; step < 4; ++step) {
+    const int row = 4 * t + (step ^ swap);
+    if constexpr (kSub == 2) {          // 128-byte rows, 128-byte swizzle
+      off[step] = row * 128 + (((cb >> 4) ^ (row & 7)) << 4) + (cb & 15);
+    } else {                            // 64-byte rows, 64-byte swizzle
+      off[step] = row * 64 + (((cb >> 4) ^ ((row >> 1) & 3)) << 4) +
+                  (cb & 15);
+    }
+  }
+  // second transpose stage, with the two row pairs in swapped order
+  const uint32_t sel_even = swap ? 0x1054u : 0x5410u;
+  const uint32_t sel_odd = swap ? 0x3276u : 0x7632u;
+
+  constexpr int kAcc = kRows / 2;            // s32 a thread an m64 block
+  int acc[kSub][kAcc];
+#pragma unroll
+  for (int b = 0; b < kSub; ++b) {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[b][i] = 0;
+    fence_regs(acc[b]);
+  }
+
+  int s = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    mbar_wait(full(s), phase);
+    const uint8_t* wt = ring_ptr + s * Cfg::kStageBytes + grp * kWTileBytes;
+    const uint32_t xt = ring + s * Cfg::kStageBytes + kGroups * kWTileBytes;
+#pragma unroll
+    for (int ks = 0; ks < kTileK / 32; ++ks) {
+      // A fragments: block b's rows g, g + 8 are columns cb + 2b, + 1;
+      // registers 0, 1 hold k 4t..4t+3, registers 2, 3 k 16+4t..16+4t+3
+      uint32_t a[kSub][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint8_t* rows = wt + (32 * ks + 16 * q) * kWgCols;
+        uint32_t v[4];
+#pragma unroll
+        for (int step = 0; step < 4; ++step) {
+          v[step] = kSub == 2
+              ? *reinterpret_cast<const uint32_t*>(rows + off[step])
+              : *reinterpret_cast<const uint16_t*>(rows + off[step]);
+        }
+        // bytes (k, column): lo = columns 0, 1 of two k rows, hi = 2, 3
+        const uint32_t lo01 = __byte_perm(v[0], v[1], 0x5140);
+        const uint32_t lo23 = __byte_perm(v[2], v[3], 0x5140);
+        a[0][2 * q] = __byte_perm(lo01, lo23, sel_even);      // column 0
+        a[0][2 * q + 1] = __byte_perm(lo01, lo23, sel_odd);   // column 1
+        if constexpr (kSub == 2) {
+          const uint32_t hi01 = __byte_perm(v[0], v[1], 0x7362);
+          const uint32_t hi23 = __byte_perm(v[2], v[3], 0x7362);
+          a[kSub - 1][2 * q] = __byte_perm(hi01, hi23, sel_even);
+          a[kSub - 1][2 * q + 1] = __byte_perm(hi01, hi23, sel_odd);
+        }
+      }
+      wgmma_fence();
+      const uint64_t desc_b = sw128_desc(xt + 32 * ks);
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) wgmma_rs<kRows>(acc[b], a[b], desc_b);
+      wgmma_commit();
+      wgmma_wait<1>();     // the previous k32 step's wgmmas have retired
+      if (ks == 0 && kt > 0 && lane == 0) mbar_arrive(empty(prev));
+    }
+    prev = s;
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1u;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < kSub; ++b) fence_regs(acc[b]);
+
+  // epilogue: acc[b][4j + 2h + e] is output row m0 + 8j + 2t + e, column
+  // nb + 2b + h: a thread holds 2 kSub adjacent columns of each of its
+  // rows and stores them with one 4- to 16-byte store
+  const int nb = n0 + grp * kWgCols + cb;
+  if (nb >= n) return;                     // n % 16 == 0: all or none
+  float scol[2 * kSub];
+#pragma unroll
+  for (int c = 0; c < 2 * kSub; ++c) scol[c] = sw[nb + c];
+#pragma unroll
+  for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * j + 2 * t + e;
+      if (row >= m) continue;
+      const float sr = sx[row];
+      float v[2 * kSub];
+#pragma unroll
+      for (int c = 0; c < 2 * kSub; ++c) {
+        const int sum = acc[c >> 1][4 * j + 2 * (c & 1) + e];
+        v[c] = __fmul_rn(__fmul_rn(__int2float_rn(sum), sr), scol[c]);
+      }
+      store_cols(out + static_cast<long long>(row) * n + nb, v);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call; the library links only the
+// runtime, so it is looked up through the runtime once.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A row-major (outer, inner) int8 matrix, boxes of (box_outer, box_inner)
+// in the 64- or 128-byte swizzle; out-of-bounds elements load as zero.
+bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer,
+                int box_inner, int box_outer, int swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename OutT, typename Cfg>
+cudaError_t launch_wgmma(const void* x, const void* w, const void* sx,
+                         const void* sw, void* out, int m, int k, int n,
+                         void* stream) {
+  // TMA: row strides and base addresses in multiples of 16 bytes
+  if (k <= 0 || k % 16 || n % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = int8_wgmma_kernel<OutT, Cfg>;
+  // the dynamic shared memory above 48 KB, once a device (so that a launch
+  // captured in a CUDA graph makes no other runtime call)
+  static uint64_t configured = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (!(configured >> device & 1)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+    if (err != cudaSuccess) return err;
+    configured |= 1ull << device;
+  }
+  CUtensorMap xmap, wmap;
+  // x rows are 128 bytes, w tile rows kWgCols: each swizzled in full
+  if (!tensor_map(&xmap, x, k, m, kTileK, Cfg::kRows, 128) ||
+      !tensor_map(&wmap, w, n, k, Cfg::kWgCols, kTileK, Cfg::kWgCols)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((m + Cfg::kRows - 1) / Cfg::kRows,
+                  (n + Cfg::kCols - 1) / Cfg::kCols);
+  kernel<<<grid, Cfg::kThreads, Cfg::kSmem,
+           static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, static_cast<const float*>(sx),
+      static_cast<const float*>(sw), static_cast<OutT*>(out), m, k, n);
+  return cudaGetLastError();
+}
+
+// path 1: decode tiles; path 2: prefill tiles (see the note at the top)
+using DecodeConfig = WgmmaConfig<64, 1, 1, 6, 2, 216>;
+using PrefillConfig = WgmmaConfig<128, 2, 2, 4, 1, 232>;
+
+template <typename OutT>
+cudaError_t launch(int path, const void* x, const void* w, const void* sx,
+                   const void* sw, void* out, int m, int k, int n,
+                   void* stream) {
+  switch (path) {
+    case 0:
+      return launch_mma_sync<OutT>(x, w, sx, sw, out, m, k, n, stream);
+    case 1:
+      return launch_wgmma<OutT, DecodeConfig>(x, w, sx, sw, out, m, k, n,
+                                              stream);
+    case 2:
+      return launch_wgmma<OutT, PrefillConfig>(x, w, sx, sw, out, m, k, n,
+                                               stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x (m, k), w (k, n) int8; sx (m,), sw (n,) float32; out (m, n): bfloat16
-// when out_bf16 is 1, else float32. All contiguous.
+// when out_bf16 is 1, else float32. All contiguous. path: 0 the mma.sync
+// kernel, 1 and 2 the wgmma kernel's decode and prefill tiles.
 extern "C" int int8_matmul_launch(const void* x, const void* w,
                                   const void* sx, const void* sw, void* out,
-                                  int m, int k, int n, int out_bf16,
+                                  int m, int k, int n, int out_bf16, int path,
                                   void* stream) {
   if (out_bf16) {
-    return launch<__nv_bfloat16>(x, w, sx, sw, out, m, k, n, stream);
+    return launch<__nv_bfloat16>(path, x, w, sx, sw, out, m, k, n, stream);
   }
-  return launch<float>(x, w, sx, sw, out, m, k, n, stream);
+  return launch<float>(path, x, w, sx, sw, out, m, k, n, stream);
+}
+
+// Dynamic shared memory a block of `path` asks for (0: static only).
+extern "C" int int8_matmul_smem(int path) {
+  return path == 1 ? DecodeConfig::kSmem
+                   : path == 2 ? PrefillConfig::kSmem : 0;
 }

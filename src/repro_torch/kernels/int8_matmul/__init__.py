@@ -1,5 +1,6 @@
-from .kernel import int8_matmul, int8_matmul_ref
+from .kernel import (PATHS, int8_matmul, int8_matmul_kernel, int8_matmul_ref,
+                     kernel_path)
 from .ops import quantized_matmul, quantize_rows
 
-__all__ = ["int8_matmul", "int8_matmul_ref", "quantized_matmul",
-           "quantize_rows"]
+__all__ = ["PATHS", "int8_matmul", "int8_matmul_kernel", "int8_matmul_ref",
+           "kernel_path", "quantized_matmul", "quantize_rows"]

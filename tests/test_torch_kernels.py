@@ -286,25 +286,53 @@ def test_karatsuba_ppm_kernel_matches_plain_on_card(cuda_device, n):
         a[:64].cpu().numpy(), b[:64].cpu().numpy())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (33, 70, 45), (1, 1, 1),
-                                   (128, 4096, 130), (300, 129, 257),
-                                   (2048, 3584, 512)])
-@pytest.mark.parametrize("out_dtype", (torch.bfloat16, torch.float32))
-def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, m, k, n,
-                                                  out_dtype):
+def _int8_operands(m, k, n, device):
     rng = np.random.default_rng(m * k + n)
     x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
     w = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
     sx = torch.from_numpy(rng.random(m, dtype=np.float32) + 0.01)
     sw = torch.from_numpy(rng.random(n, dtype=np.float32) + 0.01)
-    args = [t.to(cuda_device) for t in (x, w, sx, sw)]
+    return [t.to(device) for t in (x, w, sx, sw)]
+
+
+def _same_bits(got, want, out_dtype):
+    assert got.dtype == want.dtype == out_dtype
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    return torch.equal(got.view(bits), want.view(bits))
+
+
+# mma.sync: (33, 70, 45), (1, 1, 1), (128, 4096, 130), (300, 129, 257);
+# wgmma decode tiles: (64, 64, 64), gemma2-9b's decode batch; wgmma
+# prefill tiles: (2048, 3584, 512), gemma2-9b's prefill chunk, K = 3600
+# (not a multiple of the 128-deep stage), ragged M and N edges
+# (100, 512, 208), (1152, 128, 4096)
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (33, 70, 45), (1, 1, 1),
+                                   (128, 4096, 130), (300, 129, 257),
+                                   (2048, 3584, 512), (64, 3584, 14336),
+                                   (2048, 3584, 14336), (256, 3600, 256),
+                                   (100, 512, 208), (1152, 128, 4096)])
+@pytest.mark.parametrize("out_dtype", (torch.bfloat16, torch.float32))
+def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, m, k, n,
+                                                  out_dtype):
+    args = _int8_operands(m, k, n, cuda_device)
     got = _counted("int8_matmul", TI.int8_matmul, *args,
                    out_dtype=out_dtype)
     want = TI.int8_matmul_ref(*args, out_dtype=out_dtype)
-    assert got.dtype == want.dtype == out_dtype
-    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
-    assert torch.equal(got.view(bits), want.view(bits))
+    assert _same_bits(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", TI.PATHS)
+@pytest.mark.parametrize("m,k,n", [(200, 640, 4096), (1, 3600, 48)])
+@pytest.mark.parametrize("out_dtype", (torch.bfloat16, torch.float32))
+def test_int8_each_kernel_path_matches_plain_on_card(cuda_device, path, m,
+                                                     k, n, out_dtype):
+    args = _int8_operands(m, k, n, cuda_device)
+    got = _counted("int8_matmul", TI.int8_matmul_kernel, *args, path=path,
+                   out_dtype=out_dtype)
+    want = TI.int8_matmul_ref(*args, out_dtype=out_dtype)
+    assert _same_bits(got, want, out_dtype)
 
 
 @pytest.mark.cuda
