@@ -8,7 +8,10 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
 1. Print the card (``nvidia-smi`` name and power limit), build the
    hand-written CUDA kernels from ``src/repro_torch/csrc`` and print
    each kernel's registers, spills and ptxas warnings (``-Xptxas -v``),
-   and the int8 wgmma kernels' dynamic shared memory.
+   the int8 wgmma kernels' dynamic shared memory, and the bulk kernels of
+   ``bank_fold`` and FF at each width: threads, tile rows, stages,
+   dynamic shared memory and the persistent grid's blocks an SM, as the
+   CUDA source fixes them.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes (per-instance row counts of a
    B = 1,048,576 round), and time kernel, plain version and, where one
@@ -16,6 +19,14 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    and library times are device times: 20 calls captured in one CUDA
    graph and replayed, so no host work sits between launches; the older
    figure (20 calls launched from Python) is printed beside them.
+   ``bank_fold`` (both designs) and FF also get a cold figure, for the
+   kernel and the library call: the graph's calls rotate through copies
+   of the operands whose bytes exceed twice the L2, each call writing an
+   output of its own (only the cold figure is held to the HBM bound:
+   warm operands stay in the L2); their other path (bulk or per-thread)
+   is held against the plain version and timed on the same inputs; and
+   FF and the int64 ``*`` are timed warm over 0.5-2 million 2-limb rows,
+   where each falls out of the L2.
 3. The main path: for each of the 13 registry designs,
    ``repro_torch.designs.generate(name)`` (auto: the fused capability)
    multiplies B = 65,536 operand pairs at the design's full width,
@@ -47,6 +58,7 @@ The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
+import ctypes
 import dataclasses
 import json
 import pathlib
@@ -74,6 +86,7 @@ INT8_TC_OPS_PER_S = 1.979e15       # dense int8 tensor-core peak
 GEMMA_K, GEMMA_N = 3584, 14336
 GEMMA_M = (2048, 64)               # a prefill chunk, a decode batch
 SLICE2_KERNELS = {"prefix_adder", "karatsuba_ppm", "int8_matmul"}
+COLD_BYTES = 100e6                 # twice the H100's 50 MB L2
 ALL_KERNELS = {"bank_fold", "mcim_fold_fb", "mcim_fold_ff",
                "mcim_fold_karatsuba"} | SLICE2_KERNELS
 
@@ -125,6 +138,37 @@ def graph_ms(fn, calls=20, replays=5):
     stop.record()
     torch.cuda.synchronize()
     del graph
+    return start.elapsed_time(stop) / (calls * replays)
+
+
+def cold_copies(args):
+    """Copies of ``args`` whose bytes together exceed :data:`COLD_BYTES`
+    (at least two)."""
+    size = sum(t.numel() * t.element_size() for t in args)
+    return [tuple(t.clone() for t in args)
+            for _ in range(max(2, int(COLD_BYTES // size) + 1))]
+
+
+def cold_graph_ms(fn, arg_sets, calls=20, replays=5):
+    """Device milliseconds per call with cold operands: call i of one
+    CUDA graph reads ``arg_sets[i % len(arg_sets)]`` and keeps its own
+    output, so each call finds its inputs and output out of the L2."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            outs.append(fn(*arg_sets[i % len(arg_sets)]))
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph, outs
     return start.elapsed_time(stop) / (calls * replays)
 
 
@@ -208,7 +252,41 @@ def phase_card():
     from repro_torch.kernels.int8_matmul import PATHS
     print("  int8_matmul dynamic shared memory a block: " + ", ".join(
         f"{p} {lib.int8_matmul_smem(i)} B" for i, p in enumerate(PATHS)))
+    print_bulk_plans()
     return smi
+
+
+def round_blocks(design_name, device):
+    """The fused blocks of a B = B_TIME round of a registry design: the
+    design, its per-instance op counts, rows a block and super-geometry."""
+    from repro_torch import designs
+    from repro_torch.kernels import bank_fold as BF
+    d = designs.generate(design_name, device=device)
+    n_ops = [i.n_ops for i in d.report(B_TIME).instances]
+    rows, _ = BF.fused_block_rows([range(n) for n in n_ops])
+    return d, n_ops, rows, BF.super_geometry(d.bank.instances, d.la, d.lb)
+
+
+def print_bulk_plans():
+    """The bulk kernels' shapes as the CUDA source fixes them (threads,
+    tile rows, stages, dynamic shared memory) and the blocks the card
+    holds of each (the persistent grid)."""
+    from repro_torch.kernels import _build
+    device = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for lib, symbol in (("bank_fold", "bank_fold_bulk_shape"),
+                        ("mcim_fold", "mcim_fold_ff_bulk_shape")):
+        fn = getattr(_build.library(lib), symbol)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        for la in (2, 4, 8, 16):
+            info = (ctypes.c_int * 5)()
+            check(fn(la, info) == 0, f"{symbol}({la}) failed")
+            threads, tile, stages, smem, blocks = info
+            print(f"  {symbol[:-11]} bulk kernel, {la} limbs: {threads} "
+                  f"threads, {tile} rows a tile, {stages} stages, {smem} B "
+                  f"shared, {blocks / sms:g} blocks an SM ({blocks} in "
+                  f"the persistent grid)")
 
 
 def kernel_name(mangled):
@@ -305,6 +383,53 @@ def kernel_entry(name, route_name, source, replaces, kernel_fn, plain_fn,
             "library_ms": lib_ms}
 
 
+def other_path(entry, run, plain_fn, args, chosen):
+    """Hold the path its plan did not choose against the plain version
+    on the same inputs, and time it (device time)."""
+    other = "per_thread" if chosen == "bulk" else "bulk"
+    err, same = compare(run(*args, path=other), plain_fn(*args))
+    check(same, f"{entry['name']} {other}: disagrees with its plain "
+          f"version (max abs err {err})")
+    entry["path"] = chosen
+    entry[f"{other}_ms"] = graph_ms(lambda: run(*args, path=other))
+
+
+def add_cold(entry, kernel_fn, args, library=None, lib_args=()):
+    """Cold figures of a kernel and its library call (see
+    :func:`cold_graph_ms`), beside the warm ones.  Only the cold figure
+    is a share of the HBM bound: warm operands of up to ~40 MB stay in
+    the L2 across replays, which moves them faster than HBM."""
+    entry["ms_cold"] = cold_graph_ms(kernel_fn, cold_copies(args))
+    entry["library_ms_cold"] = (None if library is None else
+                                cold_graph_ms(library, cold_copies(lib_args)))
+    other = next(k for k in entry if k.endswith("_ms") and k not in (
+        "plain_ms", "bound_ms", "library_ms"))
+    lib = ("none" if library is None else
+           f"{entry['library_ms']:.4f} ms warm, "
+           f"{entry['library_ms_cold']:.4f} cold")
+    print(f"    {entry['path']} path {entry['ms']:.4f} ms warm, "
+          f"{entry['ms_cold']:.4f} cold "
+          f"({entry['bound_ms'] / entry['ms_cold']:.1%} of the HBM bound "
+          f"cold); {other[:-3]} path {entry[other]:.4f} ms warm; library "
+          f"{lib}")
+
+
+def footprint(device, rng):
+    """FF (2 limbs: 32 B a row) and the int64 ``*`` (24 B a row) warm
+    over 0.5-2 million rows: the rates at which each falls out of the
+    L2."""
+    from repro_torch.kernels import mcim_fold as MF
+    for rows in (524_288, 786_432, 1_048_576, 1_310_720, 1_572_864,
+                 2_097_152):
+        a, b = operands(rng, (rows,), 32, device)
+        pa, pb = packed(a), packed(b)
+        ff = graph_ms(lambda: MF.mcim_fold_mul(a, b, ct=2, schedule="ff"))
+        lib = graph_ms(lambda: pa * pb)
+        print(f"    footprint {rows} rows: FF {ff:.4f} ms "
+              f"({32 * rows / ff / 1e9:.2f} TB/s), int64 * {lib:.4f} ms "
+              f"({24 * rows / lib / 1e9:.2f} TB/s)")
+
+
 def phase_kernels(device):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch import designs
@@ -318,17 +443,14 @@ def phase_kernels(device):
     ref_fold = "src/repro/kernels/mcim_fold/kernel.py"
 
     for design_name in ("tp3p5_w32", "tp5over6_w128"):
-        d = designs.generate(design_name, device=device)
+        d, n_ops, rows, sg = round_blocks(design_name, device)
         check(d.bank.backend == "fused", f"{design_name}: auto is not fused")
-        n_ops = [i.n_ops for i in d.report(B_TIME).instances]
-        rows, _ = BF.fused_block_rows([range(n) for n in n_ops])
-        sg = BF.super_geometry(d.bank.instances, d.la, d.lb)
         table = torch.from_numpy(sg.table()).to(device)
         a, b = operands(rng, (sg.n_instances, rows), d.spec.bits_a, device)
         ops = rows * sum(ops_per_row("bank_fold", d.la, d.lb,
                                      sg.windows(i))
                          for i in range(sg.n_instances))
-        lib = None
+        lib = pa = pb = None
         if d.spec.bits_a <= 32:
             pa, pb = packed(a), packed(b)
             lib = lambda pa=pa, pb=pb: pa * pb          # noqa: E731
@@ -338,6 +460,11 @@ def phase_kernels(device):
             "src/repro/kernels/bank_fold/kernel.py:44",
             BF.fused_bank_mul, BF.fused_bank_mul_ref, (a, b, table), ops,
             library=lib)
+        other_path(entry, BF.fused_bank_mul_kernel, BF.fused_bank_mul_ref,
+                   (a, b, table), BF.launch_plan(
+                       sg.n_instances, rows, d.la, d.lb, True))
+        add_cold(entry, BF.fused_bank_mul, (a, b, table),
+                 None if lib is None else torch.mul, (pa, pb))
         entries.append(entry)
         rounds[design_name] = entry
 
@@ -382,12 +509,22 @@ def phase_kernels(device):
     check(cfg.arch == "ff", "tbl8_w32_strict is expected to plan ff")
     fa, fb_ = operands(rng, (B_TIME,), d.spec.bits_a, device)
     pa, pb = packed(fa), packed(fb_)
-    entries.append(kernel_entry(
+    entry = kernel_entry(
         "mcim_fold_ff", "mcim_fold_ff", src_fold, f"{ref_fold}:146",
         lambda x, y: MF.mcim_fold_mul(x, y, ct=cfg.ct, schedule="ff"),
         lambda x, y: MF.mcim_fold_mul_ref(x, y, ct=cfg.ct, schedule="ff"),
         (fa, fb_), B_TIME * ops_per_row("mcim_fold_ff", d.la, d.lb),
-        library=lambda: pa * pb))
+        library=lambda: pa * pb)
+    other_path(entry, lambda x, y, path: MF.mcim_fold_ff_kernel(
+                   x, y, ct=cfg.ct, path=path),
+               lambda x, y: MF.mcim_fold_mul_ref(x, y, ct=cfg.ct,
+                                                 schedule="ff"),
+               (fa, fb_), MF.ff_launch_plan(B_TIME, d.la, d.lb, True))
+    add_cold(entry, lambda x, y: MF.mcim_fold_mul(x, y, ct=cfg.ct,
+                                                  schedule="ff"),
+             (fa, fb_), torch.mul, (pa, pb))
+    footprint(device, rng)
+    entries.append(entry)
     entries += slice2_entries(device, rng)
     names = {e["counter"] for e in entries}
     check(names == ALL_KERNELS, f"kernels covered: {names}")
@@ -482,6 +619,7 @@ def phase_main_path(device):
     from repro_torch import designs
     from repro_torch.core.bank import Bank
     from repro_torch.core import limbs as L
+    from repro_torch.kernels import _build
     from repro_torch.kernels import launch_counts, reset_launch_counts
     print(f"phase 3: main path, 13 registry designs x B={B_MAIN}")
     rng = np.random.default_rng(SEED + 1)
@@ -494,11 +632,14 @@ def phase_main_path(device):
               f"{d.bank.backend}")
         a, b = operands(rng, (B_MAIN,), d.spec.bits_a, device)
         before = launch_counts()["bank_fold"]
+        paths_before = _build.path_counts()["bank_fold"]
         out = d.mul(a, b)
         torch.cuda.synchronize()
         launched = launch_counts()["bank_fold"] - before
         check(launched == d.bank.launch_count(B_MAIN) == 1,
               f"{name}: {launched} bank_fold launches for one round")
+        path, = (p for p, n in _build.path_counts()["bank_fold"].items()
+                 if n > paths_before[p])
         want = Bank(d.plan, d.spec.bits_a, d.spec.bits_b, backend="core",
                     device=device).execute(a, b)
         check(torch.equal(out, want), f"{name}: fused != plain core bank")
@@ -507,7 +648,10 @@ def phase_main_path(device):
               == oracle(a[:ORACLE_ROWS], b[:ORACLE_ROWS]),
               f"{name}: fused != bigint oracle")
         inputs[name], plain[name] = (a, b), want
-        print(f"  {name}: {d.plan.describe()}  fused ok, 1 launch")
+        print(f"  {name}: {d.plan.describe()}  fused ok, 1 launch "
+              f"({path} path)")
+    print("  fused rounds by the path they launched: "
+          f"{_build.path_counts()['bank_fold']}")
 
     spec = dataclasses.replace(designs.get("tp3p5_w32"), signed=True)
     d = designs.generate(spec)

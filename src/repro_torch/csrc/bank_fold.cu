@@ -10,47 +10,135 @@
 // retires the product.
 //
 // Design. The TPU grid (row tile, instance, step) runs its step axis in
-// order, carrying the accumulator in VMEM scratch between steps. Here
-// the instance and row axes become blocks and threads (blockIdx.y is
-// the instance, one thread per row), and the step axis becomes a loop
-// inside the thread, over the instance's own row of the window table,
-// which each thread reads from device memory (no scalar prefetch).
-// Only the window's limbs are multiplied: masked limbs add 0, so the
-// bits equal the reference's full masked loop. The kernel is templated
-// on the operand width bucket so the accumulator stays in registers.
+// order, carrying the accumulator in VMEM scratch between steps. Here a
+// thread owns a row, limbs and accumulator in registers (kernels are
+// templated on the operand width). The step axis folds into per-limb
+// weights: once a tile, each thread counts, for every B limb, the steps
+// whose window holds it (on the bulk path a warp reads its instance's
+// windows with one load, a window word a lane, and shares them by
+// shuffles); one schoolbook pass then adds each partial product that
+// many times (tiles::ppm_weighted), the same uint32 column sums as the
+// reference's loop of masked steps, bit for bit.
 //
-// Bound: at the widths of the registry designs (2 to 8 limbs) a row
-// moves 4*(2*(LA+LB)) bytes for about 5*LA*LB + 3*(LA+LB) integer ops,
-// so memory bytes bound it. The row-per-thread layout reads each row's
-// limbs with a stride of LA words across a warp; coalescing it is later
-// work.
-#include "limbs.cuh"
+// Bound. At the registry widths a row moves 4 * 2 * (LA + LB) bytes for
+// about 5 * LA * width + 3 * (LA + LB) integer operations (width: the
+// window limbs summed over steps), so device-memory bytes bound it on
+// the H100: 3.35 TB/s against 16.7 Tops/s of int32 work. What a thread
+// reading its row straight from device memory loses is the store
+// pattern: its LA+LB 4-byte stores fall at a stride of LA+LB words
+// across a warp, so at 8 limbs a warp's store instruction touches 32
+// sectors for 128 bytes. The rows move as tiles instead (row_tiles.cuh):
+// * bank_fold_bulk_kernel (LA = LB = 2, 4, 8 or 16, 16-byte-aligned
+//   spans): a persistent grid (at 8 and 16 limbs two blocks an SM, at 2
+//   and 4 as many as fit); each block walks (instance, row tile) pairs,
+//   a tile never crossing instances, so the weights are warp-uniform. A
+//   ring of stages holds the next tiles' A and B spans, brought in by
+//   1-D TMA bulk copies on mbarriers while the current tile computes.
+//   Products leave through shared memory in one bulk store a tile; at 2
+//   limbs a product is one 16-byte vector, stored straight from
+//   registers. Tiles, stages and blocks an SM are compile-time constants
+//   of the width (tiles::Bulk).
+// * bank_fold_kernel (everything else: misaligned views, odd row counts
+//   at 2 limbs, mixed or odd widths): one block a tile, rows loaded
+//   straight from device memory, products wider than 16 bytes stored
+//   through shared memory with neighbouring threads on neighbouring
+//   words.
+// The host picks the path (kernels/_row_tiles.py `plan`); a launch the
+// bulk path cannot take returns cudaErrorInvalidValue.
+#include "row_tiles.cuh"
 
 namespace {
 
-template <int MAXL>
-__global__ void bank_fold_kernel(const uint32_t* __restrict__ a,
-                                 const uint32_t* __restrict__ b,
-                                 const int32_t* __restrict__ table,
-                                 uint32_t* __restrict__ out, int rows,
-                                 int la, int lb, int max_steps) {
-  const int inst = blockIdx.y;
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;  // ragged edge of the row axis
-  const size_t row = (size_t)inst * rows + r;
+// The schedule table as limb weights: B limb jb of instance `inst`
+// enters the product once for every step whose window holds it.
+struct BankFold {
+  const int32_t* table;  // (n_inst, max_steps, 2) windows
+  int max_steps;
 
-  uint32_t av[MAXL], bv[MAXL], acc[2 * MAXL];
-  limbs::load_row<MAXL>(a + row * la, la, av);
-  limbs::load_row<MAXL>(b + row * lb, lb, bv);
+  // Each thread reads the windows itself: the same address across the
+  // warp, one broadcast load a word (the per-thread path, where a tile
+  // is one row a thread).
+  template <int M>
+  __device__ __forceinline__ void weights(int inst, uint32_t (&c)[M]) const {
+    const int32_t* w = table + (size_t)inst * max_steps * 2;
 #pragma unroll
-  for (int k = 0; k < 2 * MAXL; ++k) acc[k] = 0u;
-
-  // the TPU's sequential step axis: this instance's folded windows
-  const int32_t* tbl = table + (size_t)inst * max_steps * 2;
-  for (int j = 0; j < max_steps; ++j) {
-    limbs::ppm_window<MAXL>(av, bv, tbl[2 * j], tbl[2 * j + 1], acc);
+    for (int jb = 0; jb < M; ++jb) c[jb] = 0u;
+    for (int j = 0; j < max_steps; ++j) {
+      const int lo = __ldg(w + 2 * j), hi = __ldg(w + 2 * j + 1);
+#pragma unroll
+      for (int jb = 0; jb < M; ++jb) c[jb] += jb >= lo && jb < hi;
+    }
   }
-  limbs::carry_store<2 * MAXL>(acc, la + lb, out + row * (la + lb));
+
+  // The same weights, the warp reading the windows once: lane k loads
+  // word k (32 words at a time) and the warp shares them by shuffles
+  // (the bulk walk, once a tile). Every lane of the warp calls it.
+  template <int M>
+  __device__ __forceinline__ void warp_weights(int inst,
+                                               uint32_t (&c)[M]) const {
+    const int32_t* w = table + (size_t)inst * max_steps * 2;
+    const int words = 2 * max_steps, lane = threadIdx.x % 32;
+#pragma unroll
+    for (int jb = 0; jb < M; ++jb) c[jb] = 0u;
+    for (int base = 0; base < words; base += 32) {
+      const int32_t mine = base + lane < words ? __ldg(w + base + lane) : 0;
+      const int n = min(32, words - base);
+      for (int k = 0; k < n; k += 2) {
+        const int lo = __shfl_sync(0xFFFFFFFFu, mine, k);
+        const int hi = __shfl_sync(0xFFFFFFFFu, mine, k + 1);
+#pragma unroll
+        for (int jb = 0; jb < M; ++jb) c[jb] += jb >= lo && jb < hi;
+      }
+    }
+  }
+};
+
+template <int L>
+__global__ void __launch_bounds__(tiles::Bulk<L>::kThreads)
+    bank_fold_bulk_kernel(const uint32_t* __restrict__ a,
+                          const uint32_t* __restrict__ b,
+                          const int32_t* __restrict__ table,
+                          uint32_t* __restrict__ out, int n_inst, int rows,
+                          int max_steps) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  tiles::bulk_walk<L>(a, b, out, n_inst, rows, smem,
+                      BankFold{table, max_steps});
+}
+
+template <int MAXL>
+__global__ void __launch_bounds__(tiles::kTileRows)
+    bank_fold_kernel(const uint32_t* __restrict__ a,
+                     const uint32_t* __restrict__ b,
+                     const int32_t* __restrict__ table,
+                     uint32_t* __restrict__ out, int rows, int la, int lb,
+                     int max_steps) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  tiles::coalesced_tile<MAXL>(a, b, out, blockIdx.y, blockIdx.x, rows, la,
+                              lb, reinterpret_cast<uint32_t*>(smem),
+                              BankFold{table, max_steps});
+}
+
+template <int L>
+cudaError_t launch_bulk(const uint32_t* a, const uint32_t* b,
+                        const int32_t* table, uint32_t* out, int n_inst,
+                        int rows, int max_steps, cudaStream_t stream) {
+  using B = tiles::Bulk<L>;
+  const long long total =
+      (long long)n_inst * ((rows + B::kTileRows - 1) / B::kTileRows);
+  if (total >= (1LL << 31) || (long long)rows * L % 4 ||
+      !tiles::aligned16(a) || !tiles::aligned16(b) ||
+      !tiles::aligned16(out)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = bank_fold_bulk_kernel<L>;
+  int blocks = 0;
+  cudaError_t err = tiles::resident_blocks(kernel, B::kThreads, B::kBytes,
+                                           B::kPerSm, &blocks);
+  if (err != cudaSuccess) return err;
+  const int grid = (int)(total < blocks ? total : blocks);
+  kernel<<<grid, B::kThreads, B::kBytes, stream>>>(a, b, table, out, n_inst,
+                                                   rows, max_steps);
+  return cudaGetLastError();
 }
 
 template <int MAXL>
@@ -58,14 +146,17 @@ cudaError_t launch(const uint32_t* a, const uint32_t* b,
                    const int32_t* table, uint32_t* out, int n_inst,
                    int rows, int la, int lb, int max_steps,
                    cudaStream_t stream) {
-  const dim3 grid((rows + limbs::kThreads - 1) / limbs::kThreads, n_inst);
-  bank_fold_kernel<MAXL><<<grid, limbs::kThreads, 0, stream>>>(
-      a, b, table, out, rows, la, lb, max_steps);
+  const int T = tiles::kTileRows;  // at most 16,896 B: no attribute needed
+  const size_t smem = MAXL == 2 ? 0 : (size_t)T * tiles::pitch(la + lb) * 4;
+  const dim3 grid((rows + T - 1) / T, n_inst);
+  bank_fold_kernel<MAXL><<<grid, T, smem, stream>>>(a, b, table, out, rows,
+                                                    la, lb, max_steps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The coalesced path, any widths up to 16 limbs and any alignment.
 extern "C" int bank_fold_launch(const void* a, const void* b,
                                 const void* table, void* out, int n_inst,
                                 int rows, int la, int lb, int max_steps,
@@ -80,5 +171,37 @@ extern "C" int bank_fold_launch(const void* a, const void* b,
     case 4: return launch<4>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
     case 8: return launch<8>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
     default: return launch<16>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
+  }
+}
+
+// The bulk path: LA = LB = 2, 4, 8 or 16 limbs, 16-byte-aligned
+// operands, rows * LA a multiple of 4.
+extern "C" int bank_fold_bulk_launch(const void* a, const void* b,
+                                     const void* table, void* out,
+                                     int n_inst, int rows, int la, int lb,
+                                     int max_steps, void* stream) {
+  auto* pa = static_cast<const uint32_t*>(a);
+  auto* pb = static_cast<const uint32_t*>(b);
+  auto* pt = static_cast<const int32_t*>(table);
+  auto* po = static_cast<uint32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (la != lb) return cudaErrorInvalidValue;
+  switch (la) {
+    case 2: return launch_bulk<2>(pa, pb, pt, po, n_inst, rows, max_steps, s);
+    case 4: return launch_bulk<4>(pa, pb, pt, po, n_inst, rows, max_steps, s);
+    case 8: return launch_bulk<8>(pa, pb, pt, po, n_inst, rows, max_steps, s);
+    case 16: return launch_bulk<16>(pa, pb, pt, po, n_inst, rows, max_steps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bulk kernel's shape at la limbs on this device (tiles::bulk_shape).
+extern "C" int bank_fold_bulk_shape(int la, int* info) {
+  switch (la) {
+    case 2: return tiles::bulk_shape<2>(bank_fold_bulk_kernel<2>, info);
+    case 4: return tiles::bulk_shape<4>(bank_fold_bulk_kernel<4>, info);
+    case 8: return tiles::bulk_shape<8>(bank_fold_bulk_kernel<8>, info);
+    case 16: return tiles::bulk_shape<16>(bank_fold_bulk_kernel<16>, info);
+    default: return cudaErrorInvalidValue;
   }
 }

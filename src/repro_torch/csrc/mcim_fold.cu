@@ -23,10 +23,11 @@
 // the register file and runs one carry pass at the end.
 //
 // Bound: at the registry widths (1 to 8 limbs) memory bytes bound all
-// three (8*(LA+LB) bytes a row against a few hundred integer ops); the
-// row-per-thread layout reads rows with a stride of LA words across a
-// warp, which later work can coalesce.
-#include "limbs.cuh"
+// three on the H100 (8*(LA+LB) bytes a row against a few hundred
+// integer ops). fb_kernel and kara_kernel read rows with a stride of
+// LA words across a warp and write them with a stride of LA+LB words;
+// FF moves its rows as tiles (see the note above ff_kernel).
+#include "row_tiles.cuh"
 
 namespace {
 
@@ -69,22 +70,67 @@ __global__ void fb_kernel(const uint32_t* __restrict__ a,
   }
 }
 
-template <int MAXL>
-__global__ void ff_kernel(const uint32_t* __restrict__ a,
-                          const uint32_t* __restrict__ b,
-                          uint32_t* __restrict__ out, int bsz, int la,
-                          int lb, int ct, int chunk) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= bsz) return;
-  uint32_t av[MAXL], bv[MAXL], acc[2 * MAXL];
-  limbs::load_row<MAXL>(a + r * la, la, av);
-  limbs::load_row<MAXL>(b + r * lb, lb, bv);
+// FF, the port of _ff_kernel (kernels/mcim_fold/kernel.py:146): CT
+// partial-product windows summed into one register file, carried once.
+// The windows [j*chunk, (j+1)*chunk) take every B limb below ct*chunk
+// once, so the cycle loop folds into one schoolbook pass with those
+// limbs at weight 1 (tiles::ppm_weighted: the same uint32 column sums,
+// bit for bit). What bounds it on the H100 is moving rows, not the
+// arithmetic (at 2 limbs a row reads 16 B and writes 16 B for about 32
+// integer operations: per million rows, 9.6 us of bytes at 3.35 TB/s
+// against 1.9 us of operations at 16.7 Tops/s), and a thread storing
+// its LA+LB limbs at a stride of LA+LB words touches many sectors a warp
+// instruction. So the rows move as tiles (row_tiles.cuh):
+// * ff_bulk_kernel (LA = LB = 2, 4, 8 or 16, 16-byte-aligned spans): a
+//   persistent grid walks the row tiles; a ring of stages keeps the next
+//   tiles' A and B spans in flight as 1-D TMA bulk copies on mbarriers
+//   while the current tile computes, rows are read from shared memory
+//   as 8- or 16-byte vectors, and each tile's products leave in one bulk
+//   store (at 2 limbs each thread stores its 16-byte product itself), so
+//   every device access moves whole 16-byte-aligned spans. Tiles, stages
+//   and blocks an SM are compile-time constants of the width
+//   (tiles::Bulk);
+// * ff_kernel (everything else: misaligned views, odd row counts at 2
+//   limbs, mixed or odd widths): one block a tile, rows loaded straight
+//   from device memory, products wider than 16 bytes stored through
+//   shared memory with neighbouring threads on neighbouring words.
+// The host picks the path (kernels/_row_tiles.py `plan`); a launch the
+// bulk path cannot take returns cudaErrorInvalidValue.
+// FF's limb weights: cycle j takes B limbs [j*chunk, (j+1)*chunk), so
+// every limb below ct*chunk enters the product once.
+struct FfFold {
+  int ct, chunk;
+
+  template <int M>
+  __device__ __forceinline__ void weights(int, uint32_t (&c)[M]) const {
 #pragma unroll
-  for (int k = 0; k < 2 * MAXL; ++k) acc[k] = 0u;
-  for (int j = 0; j < ct; ++j) {  // shared PPM into the register file
-    limbs::ppm_window<MAXL>(av, bv, j * chunk, (j + 1) * chunk, acc);
+    for (int jb = 0; jb < M; ++jb) c[jb] = jb < ct * chunk;
   }
-  limbs::carry_store<2 * MAXL>(acc, la + lb, out + r * (la + lb));
+  template <int M>
+  __device__ __forceinline__ void warp_weights(int inst,
+                                               uint32_t (&c)[M]) const {
+    weights(inst, c);
+  }
+};
+
+template <int L>
+__global__ void __launch_bounds__(tiles::Bulk<L>::kThreads)
+    ff_bulk_kernel(const uint32_t* __restrict__ a,
+                   const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                   int bsz, int ct, int chunk) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  tiles::bulk_walk<L>(a, b, out, 1, bsz, smem, FfFold{ct, chunk});
+}
+
+template <int MAXL>
+__global__ void __launch_bounds__(tiles::kTileRows)
+    ff_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+              uint32_t* __restrict__ out, int bsz, int la, int lb, int ct,
+              int chunk) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  tiles::coalesced_tile<MAXL>(a, b, out, 0, blockIdx.x, bsz, la, lb,
+                              reinterpret_cast<uint32_t*>(smem),
+                              FfFold{ct, chunk});
 }
 
 // Karatsuba operand of cycle j on the shared (H+1)-limb PPM port:
@@ -175,16 +221,42 @@ inline dim3 grid_for(int bsz) {
 }
 
 template <int MAXL>
-cudaError_t launch_fold(bool fb, const uint32_t* a, const uint32_t* b,
-                        uint32_t* out, int bsz, int la, int lb, int ct,
-                        int chunk, cudaStream_t s) {
-  if (fb) {
-    fb_kernel<MAXL><<<grid_for(bsz), limbs::kThreads, 0, s>>>(
-        a, b, out, bsz, la, lb, ct, chunk);
-  } else {
-    ff_kernel<MAXL><<<grid_for(bsz), limbs::kThreads, 0, s>>>(
-        a, b, out, bsz, la, lb, ct, chunk);
+cudaError_t launch_fb(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                      int bsz, int la, int lb, int ct, int chunk,
+                      cudaStream_t s) {
+  fb_kernel<MAXL><<<grid_for(bsz), limbs::kThreads, 0, s>>>(
+      a, b, out, bsz, la, lb, ct, chunk);
+  return cudaGetLastError();
+}
+
+template <int MAXL>
+cudaError_t launch_ff(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                      int bsz, int la, int lb, int ct, int chunk,
+                      cudaStream_t s) {
+  const int T = tiles::kTileRows;  // at most 16,896 B: no attribute needed
+  const size_t smem = MAXL == 2 ? 0 : (size_t)T * tiles::pitch(la + lb) * 4;
+  ff_kernel<MAXL><<<(bsz + T - 1) / T, T, smem, s>>>(a, b, out, bsz, la,
+                                                     lb, ct, chunk);
+  return cudaGetLastError();
+}
+
+template <int L>
+cudaError_t launch_ff_bulk(const uint32_t* a, const uint32_t* b,
+                           uint32_t* out, int bsz, int ct, int chunk,
+                           cudaStream_t s) {
+  using B = tiles::Bulk<L>;
+  const int tiles_n = (bsz + B::kTileRows - 1) / B::kTileRows;
+  if ((long long)bsz * L % 4 || !tiles::aligned16(a) ||
+      !tiles::aligned16(b) || !tiles::aligned16(out)) {
+    return cudaErrorInvalidValue;
   }
+  auto kernel = ff_bulk_kernel<L>;
+  int blocks = 0;
+  cudaError_t err = tiles::resident_blocks(kernel, B::kThreads, B::kBytes,
+                                           B::kPerSm, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<tiles_n < blocks ? tiles_n : blocks, B::kThreads, B::kBytes, s>>>(
+      a, b, out, bsz, ct, chunk);
   return cudaGetLastError();
 }
 
@@ -194,12 +266,13 @@ cudaError_t fold(bool fb, const void* a, const void* b, void* out, int bsz,
   auto* pb = static_cast<const uint32_t*>(b);
   auto* po = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  auto go = fb ? launch_fb<16> : launch_ff<16>;
   switch (limbs::bucket(la, lb)) {
-    case 2: return launch_fold<2>(fb, pa, pb, po, bsz, la, lb, ct, chunk, s);
-    case 4: return launch_fold<4>(fb, pa, pb, po, bsz, la, lb, ct, chunk, s);
-    case 8: return launch_fold<8>(fb, pa, pb, po, bsz, la, lb, ct, chunk, s);
-    default: return launch_fold<16>(fb, pa, pb, po, bsz, la, lb, ct, chunk, s);
+    case 2: go = fb ? launch_fb<2> : launch_ff<2>; break;
+    case 4: go = fb ? launch_fb<4> : launch_ff<4>; break;
+    case 8: go = fb ? launch_fb<8> : launch_ff<8>; break;
   }
+  return go(pa, pb, po, bsz, la, lb, ct, chunk, s);
 }
 
 template <int N>
@@ -224,6 +297,36 @@ extern "C" int mcim_fold_ff_launch(const void* a, const void* b, void* out,
                                    int bsz, int la, int lb, int ct,
                                    int chunk, void* stream) {
   return fold(false, a, b, out, bsz, la, lb, ct, chunk, stream);
+}
+
+// FF's bulk path: LA = LB = 2, 4, 8 or 16 limbs, 16-byte-aligned
+// operands, bsz * LA a multiple of 4.
+extern "C" int mcim_fold_ff_bulk_launch(const void* a, const void* b,
+                                        void* out, int bsz, int la, int lb,
+                                        int ct, int chunk, void* stream) {
+  auto* pa = static_cast<const uint32_t*>(a);
+  auto* pb = static_cast<const uint32_t*>(b);
+  auto* po = static_cast<uint32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (la != lb) return cudaErrorInvalidValue;
+  switch (la) {
+    case 2: return launch_ff_bulk<2>(pa, pb, po, bsz, ct, chunk, s);
+    case 4: return launch_ff_bulk<4>(pa, pb, po, bsz, ct, chunk, s);
+    case 8: return launch_ff_bulk<8>(pa, pb, po, bsz, ct, chunk, s);
+    case 16: return launch_ff_bulk<16>(pa, pb, po, bsz, ct, chunk, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// FF's bulk kernel's shape at la limbs on this device (tiles::bulk_shape).
+extern "C" int mcim_fold_ff_bulk_shape(int la, int* info) {
+  switch (la) {
+    case 2: return tiles::bulk_shape<2>(ff_bulk_kernel<2>, info);
+    case 4: return tiles::bulk_shape<4>(ff_bulk_kernel<4>, info);
+    case 8: return tiles::bulk_shape<8>(ff_bulk_kernel<8>, info);
+    case 16: return tiles::bulk_shape<16>(ff_bulk_kernel<16>, info);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,

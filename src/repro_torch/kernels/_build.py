@@ -10,7 +10,8 @@ the first time any kernel is launched.
 
 This module also keeps the per-kernel launch counters: every wrapper
 launches through :func:`launch`, which adds one to its kernel's count
-there and nowhere else.  Nothing here sends a CUDA tensor to a plain
+there and nowhere else, and, for a kernel with two paths, to the count
+of the path it launched.  Nothing here sends a CUDA tensor to a plain
 path.
 """
 from __future__ import annotations
@@ -40,6 +41,9 @@ _FNS: dict = {}
 LAUNCHES = {"bank_fold": 0, "mcim_fold_fb": 0, "mcim_fold_ff": 0,
             "mcim_fold_karatsuba": 0, "prefix_adder": 0, "karatsuba_ppm": 0,
             "int8_matmul": 0}
+#: launches of ``bank_fold`` and FF by path (``kernels/_row_tiles.py``)
+PATH_LAUNCHES = {k: {"bulk": 0, "per_thread": 0}
+                 for k in ("bank_fold", "mcim_fold_ff")}
 
 
 def _nvcc() -> str:
@@ -119,14 +123,17 @@ def launcher(lib: str, symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-def launch(kernel: str, fn, tensors, ints) -> None:
+def launch(kernel: str, fn, tensors, ints, path: str | None = None) -> None:
     """Launch ``fn`` on the current stream of the tensors' device, count
-    it, and raise if CUDA refused the launch."""
+    it (and its ``path``, for a kernel with two), and raise if CUDA
+    refused the launch."""
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
     LAUNCHES[kernel] += 1
+    if path is not None:
+        PATH_LAUNCHES[kernel][path] += 1
     if err:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
@@ -156,7 +163,15 @@ def check_limbs(name: str, la: int, lb: int) -> None:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for paths in PATH_LAUNCHES.values():
+        for p in paths:
+            paths[p] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def path_counts() -> dict:
+    """Launches of ``bank_fold`` and FF by path since the last reset."""
+    return {k: dict(v) for k, v in PATH_LAUNCHES.items()}

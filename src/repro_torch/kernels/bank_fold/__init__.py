@@ -2,12 +2,14 @@
 from .geometry import (FUSED_SCHEDULE, SuperGeometry, fused_ct,
                        fused_geometry, fused_windows, super_geometry,
                        vmem_bytes_per_step)
-from .kernel import fused_bank_mul, fused_bank_mul_ref
+from .kernel import (PATHS, fused_bank_mul, fused_bank_mul_kernel,
+                     fused_bank_mul_ref, launch_plan)
 from .ops import fused_block_rows, make_fused_dispatch
 
 __all__ = [
     "FUSED_SCHEDULE", "SuperGeometry", "fused_ct", "fused_geometry",
     "fused_windows", "super_geometry", "vmem_bytes_per_step",
-    "fused_bank_mul", "fused_bank_mul_ref", "fused_block_rows",
+    "PATHS", "fused_bank_mul", "fused_bank_mul_kernel",
+    "fused_bank_mul_ref", "launch_plan", "fused_block_rows",
     "make_fused_dispatch",
 ]

@@ -2,16 +2,20 @@
 
 Counterpart of the reference's ``kernels/bank_fold/kernel.py``, whose
 TPU kernel ``_bank_kernel`` is hand-written CUDA in
-``csrc/bank_fold.cu`` here.  :func:`fused_bank_mul` launches it for CUDA
-tensors and runs :func:`fused_bank_mul_ref`, a windowed schoolbook on
-int64 lanes, for CPU tensors; nothing else selects between them.
+``csrc/bank_fold.cu`` here, with two paths: TMA bulk copies of row tiles
+on a persistent grid, and a coalesced per-thread path for what a bulk
+copy cannot take.  :func:`launch_plan` picks the path from the shape and
+alignment alone; :func:`fused_bank_mul` launches it for CUDA tensors and
+runs :func:`fused_bank_mul_ref`, a windowed schoolbook on int64 lanes,
+for CPU tensors; nothing else selects between them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import limbs as L
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _row_tiles
+from repro_torch.kernels._row_tiles import PATHS
 
 
 def _check_shapes(a_blocks, b_blocks, table) -> None:
@@ -51,6 +55,18 @@ def fused_bank_mul_ref(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     return L.final_adder_1ca(acc, la + lb)
 
 
+def launch_plan(n_inst: int, rows: int, la: int, lb: int,
+                aligned: bool) -> str:
+    """The path of ``csrc/bank_fold.cu`` (one of :data:`PATHS`) that
+    takes (N_INST, R, LA) x (N_INST, R, LB) blocks: ``"bulk"`` where TMA
+    bulk copies can move every tile (LA = LB in 2, 4, 8, 16;
+    16-byte-aligned operands, ``aligned``; R * LA a multiple of 4), else
+    ``"per_thread"``.  ``n_inst`` does not change the choice: instance
+    i's span starts i * R * LA words in.  See
+    :mod:`repro_torch.kernels._row_tiles`."""
+    return _row_tiles.plan(rows, la, lb, aligned)
+
+
 def fused_bank_mul(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
                    table: torch.Tensor) -> torch.Tensor:
     """One launch: (N_INST, R, LA) x (N_INST, R, LB) -> (N_INST, R, LA+LB).
@@ -61,16 +77,39 @@ def fused_bank_mul(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     """
     if all(t.device.type == "cpu" for t in (a_blocks, b_blocks, table)):
         return fused_bank_mul_ref(a_blocks, b_blocks, table)
-    _build.check_cuda_operands("bank_fold", a_blocks, b_blocks, table)
     _check_shapes(a_blocks, b_blocks, table)
     n_inst, rows, la = a_blocks.shape
-    lb = b_blocks.shape[-1]
+    path = launch_plan(n_inst, rows, la, b_blocks.shape[-1],
+                       _row_tiles.is_aligned(a_blocks, b_blocks))
+    return fused_bank_mul_kernel(a_blocks, b_blocks, table, path=path)
+
+
+def fused_bank_mul_kernel(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
+                          table: torch.Tensor, *, path: str) -> torch.Tensor:
+    """One launch of the path ``path`` (one of :data:`PATHS`) on CUDA
+    tensors.  :func:`fused_bank_mul` passes :func:`launch_plan`'s choice;
+    naming the other lets the card compare the paths on one shape.  The
+    bulk path raises on blocks only the per-thread path takes."""
+    _check_shapes(a_blocks, b_blocks, table)
+    if path not in PATHS:
+        raise ValueError(f"bank_fold: path must be one of {PATHS}, "
+                         f"got {path!r}")
+    n_inst, rows, la = a_blocks.shape
+    lb, max_steps = b_blocks.shape[-1], table.shape[1]
+    if path == "bulk" and launch_plan(
+            n_inst, rows, la, lb,
+            _row_tiles.is_aligned(a_blocks, b_blocks)) != "bulk":
+        raise ValueError(f"bank_fold: {tuple(a_blocks.shape)} x "
+                         f"{tuple(b_blocks.shape)} blocks are not bulk "
+                         f"copies' spans; the bulk path does not take them")
+    _build.check_cuda_operands("bank_fold", a_blocks, b_blocks, table)
     _build.check_limbs("bank_fold", la, lb)
     out = torch.empty((n_inst, rows, la + lb), dtype=L.LIMB_DTYPE,
                       device=a_blocks.device)
     if out.numel() == 0:
         return out
-    fn = _build.launcher("bank_fold", "bank_fold_launch", 4, 5)
+    symbol = "bank_fold_bulk_launch" if path == "bulk" else "bank_fold_launch"
+    fn = _build.launcher("bank_fold", symbol, 4, 5)
     _build.launch("bank_fold", fn, (a_blocks, b_blocks, table, out),
-                  (n_inst, rows, la, lb, table.shape[1]))
+                  (n_inst, rows, la, lb, max_steps), path=path)
     return out

@@ -5,7 +5,10 @@ three TPU kernel bodies (``_fb_kernel``, ``_ff_kernel`` and
 ``_kara_kernel``) are hand-written CUDA in ``csrc/mcim_fold.cu`` here.
 :func:`mcim_fold_mul` launches the kernel for a CUDA tensor and runs the
 plain PyTorch version (:func:`mcim_fold_mul_ref`, the core folded
-multipliers) for a CPU tensor; nothing else selects between them.
+multipliers) for a CPU tensor; nothing else selects between them.  The
+FF kernel has two paths (TMA bulk copies of row tiles on a persistent
+grid, and a coalesced per-thread path); :func:`ff_launch_plan` picks
+one from the shape and alignment alone.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ from repro_torch.core import limbs as L
 from repro_torch.core.karatsuba import karatsuba_mul
 from repro_torch.core.schoolbook import feedback_mul, feedforward_mul, \
     star_mul
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _row_tiles
+from repro_torch.kernels._row_tiles import PATHS
 
 SCHEDULES = ("fb", "ff", "karatsuba")
 
@@ -90,6 +94,27 @@ def mcim_fold_mul_ref(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
     return karatsuba_mul(a, b, levels=1, ct=ct)
 
 
+def ff_launch_plan(bsz: int, la: int, lb: int, aligned: bool) -> str:
+    """The path of FF's kernel in ``csrc/mcim_fold.cu`` (one of
+    :data:`PATHS`) that takes a (B, LA) x (B, LB) product: ``"bulk"``
+    where TMA bulk copies can move every tile (LA = LB in 2, 4, 8, 16;
+    16-byte-aligned operands, ``aligned``; B * LA a multiple of 4), else
+    ``"per_thread"``.  See :mod:`repro_torch.kernels._row_tiles`."""
+    return _row_tiles.plan(bsz, la, lb, aligned)
+
+
+def _checked(name: str, a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Validate CUDA operands; return (bsz, la, lb)."""
+    _build.check_cuda_operands(name, a, b)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"{name}: expected (B, LA) x (B, LB), got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    bsz, la = a.shape
+    lb = b.shape[1]
+    _build.check_limbs(name, la, lb)
+    return bsz, la, lb
+
+
 def mcim_fold_mul(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
                   schedule: str = "fb") -> torch.Tensor:
     """Batched folded multiply: (B, LA) x (B, LB) -> (B, LA+LB) limbs.
@@ -103,13 +128,10 @@ def mcim_fold_mul(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
     if a.device.type == "cpu" and b.device.type == "cpu":
         return mcim_fold_mul_ref(a, b, ct=ct, schedule=schedule)
     name = f"mcim_fold_{schedule}"
-    _build.check_cuda_operands(name, a, b)
-    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
-        raise ValueError(f"{name}: expected (B, LA) x (B, LB), got "
-                         f"{tuple(a.shape)} x {tuple(b.shape)}")
-    bsz, la = a.shape
-    lb = b.shape[1]
-    _build.check_limbs(name, la, lb)
+    bsz, la, lb = _checked(name, a, b)
+    if schedule == "ff":
+        path = ff_launch_plan(bsz, la, lb, _row_tiles.is_aligned(a, b))
+        return mcim_fold_ff_kernel(a, b, ct=ct, path=path)
     out = torch.empty((bsz, la + lb), dtype=L.LIMB_DTYPE, device=a.device)
     if bsz == 0:
         return out
@@ -121,4 +143,34 @@ def mcim_fold_mul(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
         fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 5)
         _build.launch(name, fn, (a, b, out),
                       (bsz, la, lb, geo.ct_run, geo.chunk))
+    return out
+
+
+def mcim_fold_ff_kernel(a: torch.Tensor, b: torch.Tensor, *, ct: int,
+                        path: str) -> torch.Tensor:
+    """One launch of FF's path ``path`` (one of :data:`PATHS`) on CUDA
+    tensors.  :func:`mcim_fold_mul` passes :func:`ff_launch_plan`'s
+    choice; naming the other lets the card compare the paths on one
+    shape.  The bulk path raises on operands only the per-thread path
+    takes."""
+    _check_schedule(ct, "ff")
+    if path not in PATHS:
+        raise ValueError(f"mcim_fold_ff: path must be one of {PATHS}, "
+                         f"got {path!r}")
+    if a.ndim == 2 and b.ndim == 2 and path == "bulk" and ff_launch_plan(
+            a.shape[0], a.shape[1], b.shape[1],
+            _row_tiles.is_aligned(a, b)) != "bulk":
+        raise ValueError(f"mcim_fold_ff: {tuple(a.shape)} x "
+                         f"{tuple(b.shape)} operands are not bulk copies' "
+                         f"spans; the bulk path does not take them")
+    bsz, la, lb = _checked("mcim_fold_ff", a, b)
+    out = torch.empty((bsz, la + lb), dtype=L.LIMB_DTYPE, device=a.device)
+    if bsz == 0:
+        return out
+    geo = fold_geometry(la, lb, ct, "ff")
+    symbol = ("mcim_fold_ff_bulk_launch" if path == "bulk"
+              else "mcim_fold_ff_launch")
+    fn = _build.launcher("mcim_fold", symbol, 3, 5)
+    _build.launch("mcim_fold_ff", fn, (a, b, out),
+                  (bsz, la, lb, geo.ct_run, geo.chunk), path=path)
     return out

@@ -363,3 +363,138 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):                 # not int8
         TI.int8_matmul(x, x.T.contiguous(), s, torch.ones(4, device=
                                                           cuda_device))
+
+
+# ------------- bank_fold and FF on both paths of csrc/row_tiles.cuh (cuda)
+
+# row counts around the tiles (128 rows; 256 bulk rows at 4 limbs, 512 at
+# 2), and the main path's 300,032 rows
+PATH_ROWS = (1, 7, 127, 128, 129, 255, 257, 511, 513, 300_032)
+PATH_WIDTHS = ((2, 2), (4, 4), (8, 8), (16, 16), (3, 5))
+
+
+def _on_card(x, device, offset=0):
+    """numpy limbs as a contiguous CUDA view ``offset`` words into its
+    storage (offset 1: 4-byte aligned, not 16)."""
+    flat = torch.zeros(x.size + offset, dtype=torch.int32, device=device)
+    flat[offset:] = TL.from_numpy(x.reshape(-1), device)
+    return flat[offset:].view(x.shape)
+
+
+def _bank_operands(n_inst, rows, la, lb, device, offset=0):
+    """Random (N_INST, R, LA) x (N_INST, R, LB) blocks and a table whose
+    instance i folds B over i + 1 windows, with idle (0, 0) steps (first
+    for odd instances, last for even ones)."""
+    a, b = _pair(n_inst * rows + la * lb, (n_inst, rows), 16 * la, 16 * lb)
+    max_steps = n_inst + 1
+    table = np.zeros((n_inst, max_steps, 2), np.int32)
+    for i in range(n_inst):
+        chunk = -(-lb // (i + 1))
+        wins = [(lo, min(lo + chunk, lb)) for lo in range(0, lb, chunk)]
+        idle = [(0, 0)] * (max_steps - len(wins))
+        table[i] = idle + wins if i % 2 else wins + idle
+    return (_on_card(a, device, offset), _on_card(b, device, offset),
+            torch.from_numpy(table).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", TB.PATHS)
+@pytest.mark.parametrize("rows", PATH_ROWS)
+@pytest.mark.parametrize("la,lb", PATH_WIDTHS)
+def test_bank_kernel_paths_match_plain_on_card(cuda_device, la, lb, rows,
+                                               path):
+    n_inst = 1 + PATH_ROWS.index(rows) % 4
+    a, b, table = _bank_operands(n_inst, rows, la, lb, cuda_device)
+    before = _build.path_counts()["bank_fold"][path]
+    if path == "bulk" and TB.launch_plan(n_inst, rows, la, lb,
+                                         True) != "bulk":
+        with pytest.raises(ValueError, match="bulk"):
+            TB.fused_bank_mul_kernel(a, b, table, path=path)
+        return
+    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, table,
+                   path=path)
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+    assert _build.path_counts()["bank_fold"][path] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", TB.PATHS)
+@pytest.mark.parametrize("la,lb", ((2, 2), (8, 8), (3, 5)))
+def test_bank_kernel_paths_take_many_windows(cuda_device, la, lb, path):
+    """40 windows an instance: the warps read the table 32 words at a
+    time, so this crosses a load (and idle steps sit between windows)."""
+    rng = np.random.default_rng(la * 100 + lb)
+    n_inst, rows, steps = 3, 1000, 40
+    a, b = _pair(7, (n_inst, rows), 16 * la, 16 * lb)
+    lo = rng.integers(0, lb + 1, size=(n_inst, steps))
+    hi = lo + rng.integers(0, lb + 1, size=(n_inst, steps))
+    table = np.stack([lo, np.minimum(hi, lb)], axis=-1).astype(np.int32)
+    table[:, ::3] = 0                                  # idle steps
+    a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    table = torch.from_numpy(table).to(cuda_device)
+    if path == "bulk" and TB.launch_plan(n_inst, rows, la, lb,
+                                         True) != "bulk":
+        return
+    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, table,
+                   path=path)
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", TF.PATHS)
+@pytest.mark.parametrize("rows", PATH_ROWS)
+@pytest.mark.parametrize("la,lb", PATH_WIDTHS)
+def test_ff_kernel_paths_match_plain_on_card(cuda_device, la, lb, rows,
+                                             path):
+    ct = 2 + PATH_ROWS.index(rows) % 3
+    a, b = _pair(rows + ct, (rows,), 16 * la, 16 * lb)
+    a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    before = _build.path_counts()["mcim_fold_ff"][path]
+    if path == "bulk" and TF.ff_launch_plan(rows, la, lb, True) != "bulk":
+        with pytest.raises(ValueError, match="bulk"):
+            TF.mcim_fold_ff_kernel(a, b, ct=ct, path=path)
+        return
+    got = _counted("mcim_fold_ff", TF.mcim_fold_ff_kernel, a, b, ct=ct,
+                   path=path)
+    assert torch.equal(got, TF.mcim_fold_mul_ref(a, b, ct=ct,
+                                                 schedule="ff"))
+    assert _build.path_counts()["mcim_fold_ff"][path] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("la", (2, 8))
+def test_bank_and_ff_kernels_on_misaligned_views(cuda_device, la):
+    """Views 4 bytes off a 16-byte boundary take the per-thread path
+    through the public entry points, as ``big_mul(a[3:], b[3:])`` does."""
+    a, b, table = _bank_operands(3, 1000, la, la, cuda_device, offset=1)
+    assert TB.launch_plan(3, 1000, la, la, False) == "per_thread"
+    got = _counted("bank_fold", TB.fused_bank_mul, a, b, table)
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+    fa, fb = _pair(la, (1003,), 16 * la)
+    fa, fb = TL.from_numpy(fa, cuda_device), TL.from_numpy(fb, cuda_device)
+    got = _counted("mcim_fold_ff", TF.big_mul, fa[3:], fb[3:], ct=2,
+                   schedule="ff")
+    assert torch.equal(got, TF.mcim_fold_mul_ref(fa[3:], fb[3:], ct=2,
+                                                 schedule="ff"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))        # bulk, per-thread
+def test_bank_and_ff_kernels_replay_in_a_cuda_graph(cuda_device, offset):
+    a, b, table = _bank_operands(4, 300_032, 2, 2, cuda_device, offset)
+    fa, fb = (x.reshape(-1, 2) for x in (a, b))
+    run = lambda: (TB.fused_bank_mul(a, b, table),  # noqa: E731
+                   TF.mcim_fold_mul(fa, fb, ct=2, schedule="ff"))
+    run()                                # first launches outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bank, ff = run()
+    x, y, _ = _bank_operands(4, 300_032, 2, 2, "cpu")
+    a.copy_(y.to(cuda_device))           # new operands, same storage
+    b.copy_(x.to(cuda_device))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(bank, TB.fused_bank_mul_ref(a, b, table))
+    assert torch.equal(ff, TF.mcim_fold_mul_ref(fa, fb, ct=2,
+                                                schedule="ff"))
