@@ -9,9 +9,10 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    hand-written CUDA kernels from ``src/repro_torch/csrc`` and print
    each kernel's registers, spills and ptxas warnings (``-Xptxas -v``),
    the int8 wgmma kernels' dynamic shared memory, and the bulk kernels of
-   ``bank_fold`` and FF at each width: threads, tile rows, stages,
-   dynamic shared memory and the persistent grid's blocks an SM, as the
-   CUDA source fixes them.
+   ``bank_fold`` and of FB and FF (one kernel) at each width and of the
+   spatial Karatsuba (2 limbs): threads, tile rows, stages, dynamic
+   shared memory and the persistent grid's blocks an SM, as the CUDA
+   source fixes them.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes (per-instance row counts of a
    B = 1,048,576 round), and time kernel, plain version and, where one
@@ -19,14 +20,20 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    and library times are device times: 20 calls captured in one CUDA
    graph and replayed, so no host work sits between launches; the older
    figure (20 calls launched from Python) is printed beside them.
-   ``bank_fold`` (both designs) and FF also get a cold figure, for the
-   kernel and the library call: the graph's calls rotate through copies
-   of the operands whose bytes exceed twice the L2, each call writing an
-   output of its own (only the cold figure is held to the HBM bound:
-   warm operands stay in the L2); their other path (bulk or per-thread)
-   is held against the plain version and timed on the same inputs; and
-   FF and the int64 ``*`` are timed warm over 0.5-2 million 2-limb rows,
-   where each falls out of the L2.
+   The row-tile kernels (``bank_fold`` on both designs, FB at star's and
+   the 8-limb FB's rows, FF, the spatial Karatsuba at 128 and 256 bits)
+   also get a cold figure, for the kernel and the library call: the
+   graph's calls rotate through copies of the operands whose bytes
+   exceed twice the L2, each call writing an output of its own (only the
+   cold figure is held to the HBM bound: warm operands stay in the L2);
+   their other path (bulk or per-thread) is held against the plain
+   version and timed on the same inputs, where it takes them (the bulk
+   path does not take star's odd row count, nor the spatial
+   Karatsuba's rows above 2 limbs); the
+   spatial Karatsuba's cold time is also given as a share of the
+   reference's operation count (5 operations a limb product); and FF and
+   the int64 ``*`` are timed warm over 0.5-2 million 2-limb rows, where
+   each falls out of the L2.
 3. The main path: for each of the 13 registry designs,
    ``repro_torch.designs.generate(name)`` (auto: the fused capability)
    multiplies B = 65,536 operand pairs at the design's full width,
@@ -141,11 +148,22 @@ def graph_ms(fn, calls=20, replays=5):
     return start.elapsed_time(stop) / (calls * replays)
 
 
+def offset_copy(t):
+    """A contiguous copy of ``t`` as many bytes off a 16-byte boundary as
+    ``t`` (a plain clone would be aligned, and a path chosen by
+    alignment would change)."""
+    off = t.data_ptr() % 16 // t.element_size()
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    copy = flat[off:].view(t.shape)
+    copy.copy_(t)
+    return copy
+
+
 def cold_copies(args):
     """Copies of ``args`` whose bytes together exceed :data:`COLD_BYTES`
-    (at least two)."""
+    (at least two), each at its original's offset from 16 bytes."""
     size = sum(t.numel() * t.element_size() for t in args)
-    return [tuple(t.clone() for t in args)
+    return [tuple(offset_copy(t) for t in args)
             for _ in range(max(2, int(COLD_BYTES // size) + 1))]
 
 
@@ -201,7 +219,7 @@ def ops_per_row(kernel, la, lb, windows=None, ct_run=1, chunk=1):
         rounds = (la - 1).bit_length()             # ceil(log2 W)
         # split and fold 4, (g, p, base) 4, 4 a round, carry-in and store 3
         return la * (11 + 4 * rounds)
-    if kernel == "karatsuba_ppm":
+    if kernel == "karatsuba_ppm":               # the reference's count
         h, hp = la // 2, la // 2 + 1
         return (2 * (h + 3 * hp)                   # A0+A1, B0+B1 and 1CA
                 + 5 * (2 * h * h + hp * hp)        # three PPM passes
@@ -221,6 +239,22 @@ def ops_per_row(kernel, la, lb, windows=None, ct_run=1, chunk=1):
             + 3 * (5 * hp * hp + 3 * 2 * hp)   # three PPM passes + 1CA
             + 3 * 2 * hp + 2 * (2 * 2 * n + 1)  # placements, NOT+1 terms
             + 3 * (la + lb))                   # final adder
+
+
+def kara_row_ops(n):
+    """Integer operations a row of N limbs of the spatial Karatsuba
+    kernel issues (``csrc/karatsuba_ppm.cu`` ``KaraRows``): 2 a limb
+    product of T0, T1 and T2 (one wide multiply-add, a 64-bit result), 4
+    a 64-bit column carried (add with carry out and in, mask, shift), 4
+    a limb of the two half sums (two adds, mask, shift), 2 a placed limb
+    of T0 and of T1 (add and subtract), 1 of T2, and 3 a column of the
+    final carry pass."""
+    h, hp = n // 2, n // 2 + 1
+    return (2 * (2 * h * h + hp * hp)
+            + 4 * (2 * (2 * h - 1) + 2 * hp - 1)
+            + 4 * 2 * h
+            + 2 * 2 * 2 * h + min(2 * hp, 2 * n - h)
+            + 3 * 2 * n)
 
 
 def bound(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
@@ -274,12 +308,14 @@ def print_bulk_plans():
     from repro_torch.kernels import _build
     device = torch.device("cuda", torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for lib, symbol in (("bank_fold", "bank_fold_bulk_shape"),
-                        ("mcim_fold", "mcim_fold_ff_bulk_shape")):
+    for lib, symbol, widths in (
+            ("bank_fold", "bank_fold_bulk_shape", (2, 4, 8, 16)),
+            ("mcim_fold", "mcim_fold_bulk_shape", (2, 4, 8, 16)),
+            ("karatsuba_ppm", "karatsuba_ppm_bulk_shape", (2,))):
         fn = getattr(_build.library(lib), symbol)
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        for la in (2, 4, 8, 16):
+        for la in widths:
             info = (ctypes.c_int * 5)()
             check(fn(la, info) == 0, f"{symbol}({la}) failed")
             threads, tile, stages, smem, blocks = info
@@ -385,33 +421,50 @@ def kernel_entry(name, route_name, source, replaces, kernel_fn, plain_fn,
 
 def other_path(entry, run, plain_fn, args, chosen):
     """Hold the path its plan did not choose against the plain version
-    on the same inputs, and time it (device time)."""
-    other = "per_thread" if chosen == "bulk" else "bulk"
+    on the same inputs, and time it (device time).  The operands here
+    are aligned, so a plan that chose the per-thread path did so for
+    the shape, which the bulk path does not take (its time: None)."""
+    entry["path"] = chosen
+    if chosen == "per_thread":
+        entry["bulk_ms"] = None
+        return
+    other = "per_thread"
     err, same = compare(run(*args, path=other), plain_fn(*args))
     check(same, f"{entry['name']} {other}: disagrees with its plain "
           f"version (max abs err {err})")
-    entry["path"] = chosen
     entry[f"{other}_ms"] = graph_ms(lambda: run(*args, path=other))
 
 
-def add_cold(entry, kernel_fn, args, library=None, lib_args=()):
+def add_cold(entry, kernel_fn, args, library=None, lib_args=(),
+             yardstick=None):
     """Cold figures of a kernel and its library call (see
     :func:`cold_graph_ms`), beside the warm ones.  Only the cold figure
     is a share of the HBM bound: warm operands of up to ~40 MB stay in
-    the L2 across replays, which moves them faster than HBM."""
+    the L2 across replays, which moves them faster than HBM.
+    ``yardstick``: (label, ms) of another lower bound, printed as a share
+    beside the bound's (not part of the record)."""
     entry["ms_cold"] = cold_graph_ms(kernel_fn, cold_copies(args))
     entry["library_ms_cold"] = (None if library is None else
                                 cold_graph_ms(library, cold_copies(lib_args)))
-    other = next(k for k in entry if k.endswith("_ms") and k not in (
-        "plain_ms", "bound_ms", "library_ms"))
     lib = ("none" if library is None else
            f"{entry['library_ms']:.4f} ms warm, "
            f"{entry['library_ms_cold']:.4f} cold")
-    print(f"    {entry['path']} path {entry['ms']:.4f} ms warm, "
-          f"{entry['ms_cold']:.4f} cold "
-          f"({entry['bound_ms'] / entry['ms_cold']:.1%} of the HBM bound "
-          f"cold); {other[:-3]} path {entry[other]:.4f} ms warm; library "
-          f"{lib}")
+    share = (f"{entry['bound_ms'] / entry['ms_cold']:.1%} of the bound "
+             f"({entry['bound_by']})")
+    if yardstick is not None:
+        label, ms = yardstick
+        share += f", {ms / entry['ms_cold']:.1%} of {label} ({ms:.4f} ms)"
+    path = "kernel"
+    if "path" in entry:
+        other = ("per_thread" if entry["path"] == "bulk" else "bulk") + "_ms"
+        other_ms = ("does not take the shape" if entry[other] is None else
+                    f"{entry[other]:.4f} ms warm")
+        path = f"{entry['path']} path"
+        lib = f"{other[:-3]} path {other_ms}; library {lib}"
+    else:
+        lib = f"library {lib}"
+    print(f"    {path} {entry['ms']:.4f} ms warm, {entry['ms_cold']:.4f} "
+          f"cold ({share} cold); {lib}")
 
 
 def footprint(device, rng):
@@ -488,20 +541,28 @@ def phase_kernels(device):
                 continue
             fa, fb_ = operands(rng, (n,), d.spec.bits_a, device)
             geo = MF.fold_geometry(d.la, d.lb, ct, sched)
-            lib = None
+            lib = pa = pb = None
             if d.spec.bits_a <= 32:
                 pa, pb = packed(fa), packed(fb_)
                 lib = lambda pa=pa, pb=pb: pa * pb      # noqa: E731
-            entries.append(kernel_entry(
-                label, key, src_fold, f"{ref_fold}:{line}",
-                lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul(
-                    x, y, ct=ct, schedule=s),
-                lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul_ref(
-                    x, y, ct=ct, schedule=s),
+            run = lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul(  # noqa
+                x, y, ct=ct, schedule=s)
+            plain = lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul_ref(  # noqa
+                x, y, ct=ct, schedule=s)
+            entry = kernel_entry(
+                label, key, src_fold, f"{ref_fold}:{line}", run, plain,
                 (fa, fb_), n * ops_per_row(key, d.la, d.lb,
                                            ct_run=geo.ct_run,
                                            chunk=geo.chunk),
-                library=lib))
+                library=lib)
+            if sched == "fb":                    # the row-tile paths
+                other_path(entry, lambda x, y, path: MF.mcim_fold_kernel(
+                               x, y, schedule="fb", path=path),
+                           plain, (fa, fb_),
+                           MF.fold_launch_plan(n, d.la, d.lb, True))
+                add_cold(entry, run, (fa, fb_),
+                         None if lib is None else torch.mul, (pa, pb))
+            entries.append(entry)
 
     # ff: the strict 32-bit Table VIII point, one CT=2 instance
     d = designs.generate("tbl8_w32_strict", device=device)
@@ -515,11 +576,11 @@ def phase_kernels(device):
         lambda x, y: MF.mcim_fold_mul_ref(x, y, ct=cfg.ct, schedule="ff"),
         (fa, fb_), B_TIME * ops_per_row("mcim_fold_ff", d.la, d.lb),
         library=lambda: pa * pb)
-    other_path(entry, lambda x, y, path: MF.mcim_fold_ff_kernel(
-                   x, y, ct=cfg.ct, path=path),
+    other_path(entry, lambda x, y, path: MF.mcim_fold_kernel(
+                   x, y, schedule="ff", path=path),
                lambda x, y: MF.mcim_fold_mul_ref(x, y, ct=cfg.ct,
                                                  schedule="ff"),
-               (fa, fb_), MF.ff_launch_plan(B_TIME, d.la, d.lb, True))
+               (fa, fb_), MF.fold_launch_plan(B_TIME, d.la, d.lb, True))
     add_cold(entry, lambda x, y: MF.mcim_fold_mul(x, y, ct=cfg.ct,
                                                   schedule="ff"),
              (fa, fb_), torch.mul, (pa, pb))
@@ -558,12 +619,18 @@ def slice2_entries(device, rng):
             B_TIME * ops_per_row("prefix_adder", cols.shape[1], 0)))
         del cols
         n = a.shape[1]
-        entries.append(kernel_entry(
+        entry = kernel_entry(
             f"karatsuba_ppm{tag}", "karatsuba_ppm",
             "src/repro_torch/csrc/karatsuba_ppm.cu",
             "src/repro/kernels/karatsuba_ppm/kernel.py:46",
             KP.karatsuba_ppm_mul, KP.karatsuba_ppm_mul_ref, (a, b),
-            B_TIME * ops_per_row("karatsuba_ppm", n, n)))
+            B_TIME * kara_row_ops(n))
+        other_path(entry, KP.karatsuba_ppm_kernel, KP.karatsuba_ppm_mul_ref,
+                   (a, b), KP.launch_plan(B_TIME, n, True))
+        add_cold(entry, KP.karatsuba_ppm_mul, (a, b), yardstick=(
+            "the reference's operation count",
+            bound(0, B_TIME * ops_per_row("karatsuba_ppm", n, n))[0]))
+        entries.append(entry)
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     qw, sw = gaussian_int8(gen, (GEMMA_K, GEMMA_N), 0, device)
@@ -688,7 +755,9 @@ def phase_main_path(device):
               f"{name}: {launched} launches for {busy} busy instances")
         check(torch.equal(out, plain[name]), f"{name}: kernel != plain")
     kernel_counts = launch_counts()
-    print(f"  kernel path launches: {kernel_counts}")
+    print(f"  kernel path launches: {kernel_counts}; FB and FF by path: "
+          + ", ".join(f"{k} {v}" for k, v in _build.path_counts().items()
+                      if k in ("mcim_fold_fb", "mcim_fold_ff")))
     return fused_counts, kernel_counts
 
 

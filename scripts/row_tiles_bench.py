@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's bank_fold and FF kernels beside another commit's.
+"""Time the port's row-tile kernels beside another commit's.
 
     git archive REV src/repro_torch/csrc | tar -x -C DIR
     python3 scripts/row_tiles_bench.py DIR      # from the repo root, on a card
-    python3 scripts/row_tiles_bench.py DIR -k FF   # only the FF shapes
+    python3 scripts/row_tiles_bench.py DIR -k FB   # only the FB shapes
 
-Builds DIR's ``src/repro_torch/csrc/{bank_fold,mcim_fold}.cu`` and calls
-their ``bank_fold_launch`` and ``mcim_fold_ff_launch`` (the C interface
-both commits share) beside this tree's wrappers, on the main path's
-shapes and on shapes of the per-thread path (views 4 bytes off 16, odd
-row counts, 1-limb and mixed widths) at 1 to 16 limbs.  For each shape
-it checks that both give the same bits, then times them in turns
-(other, this, this, other), each warm and cold as ``chip_smoke.py``
-phase 2 does (device time, 20 calls in one CUDA graph; cold: the calls
-rotate through copies of the operands larger than twice the L2).
+Builds DIR's ``src/repro_torch/csrc/{bank_fold,mcim_fold,karatsuba_ppm}.cu``
+and calls their C entry points (``bank_fold_launch``, FB's and FF's
+``mcim_fold_launch``, or ``mcim_fold_{fb,ff}_launch`` in commits before
+the two shared one kernel, ``karatsuba_ppm_launch``, and their bulk
+counterparts ``*_bulk_launch`` where DIR has them, taking a launch a
+bulk entry point refuses to the per-thread one) beside this tree's
+wrappers, on the main path's shapes and on shapes of the per-thread
+path (views 4 bytes off 16, odd row counts, 1-limb, mixed and odd
+widths) at 1 to 16 limbs.  For each shape it checks that both give the
+same bits, then times them in turns (other, this, this, other), each
+warm and cold as ``chip_smoke.py`` phase 2 does (device time, 20 calls
+in one CUDA graph; cold: the calls rotate through copies of the
+operands larger than twice the L2, each as many bytes off 16 as its
+original, so a view keeps its path).
 """
 import argparse
 import ctypes
@@ -32,6 +37,7 @@ from chip_smoke import (check, cold_copies, cold_graph_ms,  # noqa: E402
                         graph_ms, operands)
 
 BUILD = ROOT / "build" / "row_tiles_bench"
+SOURCES = ("bank_fold", "mcim_fold", "karatsuba_ppm")
 TP3P5_TABLE = [[(0, 2), (0, 0)]] * 3 + [[(0, 1), (1, 2)]]
 TP5OVER6_TABLE = [[(0, 4), (4, 8), (0, 0)], [(0, 3), (3, 6), (6, 8)]]
 
@@ -41,7 +47,8 @@ def stream():
 
 
 def other_kernels(parent):
-    """ctypes launchers of another commit's bank_fold and FF kernels."""
+    """{symbol: ctypes function} of another commit's entry points (a
+    bulk entry point it lacks is None)."""
     from repro_torch.kernels import _build
     src = pathlib.Path(parent) / "src" / "repro_torch" / "csrc"
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -49,19 +56,32 @@ def other_kernels(parent):
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
          str(BUILD / f"other_{n}.so"), str(src / f"{n}.cu")],
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
-        for n in ("bank_fold", "mcim_fold")}
+        for n in SOURCES}
     check(all(p.wait() == 0 for p in procs.values()), "other build failed")
-    bank = ctypes.CDLL(str(BUILD / "other_bank_fold.so")).bank_fold_launch
-    bank.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    ff = ctypes.CDLL(str(BUILD / "other_mcim_fold.so")).mcim_fold_ff_launch
-    ff.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    return bank, ff
+    libs = {n: ctypes.CDLL(str(BUILD / f"other_{n}.so")) for n in SOURCES}
+    fns = {}
+    for lib, symbol, n_ptrs, n_ints in (
+            ("bank_fold", "bank_fold_launch", 4, 5),
+            ("bank_fold", "bank_fold_bulk_launch", 4, 5),
+            ("mcim_fold", "mcim_fold_launch", 3, 3),
+            ("mcim_fold", "mcim_fold_bulk_launch", 3, 3),
+            ("mcim_fold", "mcim_fold_fb_launch", 3, 5),
+            ("mcim_fold", "mcim_fold_ff_launch", 3, 5),
+            ("mcim_fold", "mcim_fold_ff_bulk_launch", 3, 5),
+            ("karatsuba_ppm", "karatsuba_ppm_launch", 3, 2),
+            ("karatsuba_ppm", "karatsuba_ppm_bulk_launch", 3, 2)):
+        fn = getattr(libs[lib], symbol, None)
+        if fn is not None:
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        fns[symbol] = fn
+    return fns
 
 
 def cases(dev, rng):
-    """(label, operands): 3 operands for bank_fold, 2 for FF."""
+    """(label, kind, operands, ct): kind "bank" takes 3 operands, "fb",
+    "ff" and "kara" 2."""
     def view(x, offset=1):   # the same values, `offset` words off 16 bytes
         flat = torch.zeros(x.numel() + offset, dtype=torch.int32,
                            device=dev)
@@ -74,9 +94,10 @@ def cases(dev, rng):
     def bank(label, n_inst, rows, bits_a, bits_b, tbl):
         a = operands(rng, (n_inst, rows), bits_a, dev)[0]
         b = operands(rng, (n_inst, rows), bits_b, dev)[1]
-        yield label, (a, b, table(tbl))
+        yield label, "bank", (a, b, table(tbl)), None
         if bits_a == bits_b and bits_a > 16:
-            yield f"{label}, views 4 B off", (view(a), view(b), table(tbl))
+            yield (f"{label}, views 4 B off", "bank",
+                   (view(a), view(b), table(tbl)), None)
 
     yield from bank("bank_fold tp3p5_w32 4x300032x2", 4, 300_032, 32, 32,
                     TP3P5_TABLE)
@@ -90,14 +111,30 @@ def cases(dev, rng):
                     [[(0, 1)]])
     yield from bank("bank_fold 2x300032, 3x5 limbs", 2, 300_032, 48, 80,
                     [[(0, 5), (0, 0)], [(0, 3), (3, 5)]])
-    for label, rows, bits in (("FF tbl8_w32_strict 1048576x2", 1_048_576, 32),
-                              ("FF 1048575x2 (odd rows)", 1_048_575, 32),
-                              ("FF 524288x4", 524_288, 64),
-                              ("FF 262144x16", 262_144, 256)):
+    for label, kind, rows, bits, ct in (
+            ("FF tbl8_w32_strict 1048576x2", "ff", 1_048_576, 32, 2),
+            ("FF 1048575x2 (odd rows)", "ff", 1_048_575, 32, 2),
+            ("FF 524288x4", "ff", 524_288, 64, 2),
+            ("FF 262144x16", "ff", 262_144, 256, 2),
+            ("FB star of tp3p5_w32 299593x2", "fb", 299_593, 32, 1),
+            ("FB fb(ct=2) of tp5over6_w128 629146x8", "fb", 629_146, 128,
+             2),
+            ("FB 1048576x1 (16-bit)", "fb", 1_048_576, 16, 2),
+            ("FB 524288x13 (200-bit)", "fb", 524_288, 200, 3),
+            ("karatsuba_ppm 32-bit 1048576x2", "kara", 1_048_576, 32,
+             None),
+            ("karatsuba_ppm 64-bit 1048576x4", "kara", 1_048_576, 64,
+             None),
+            ("karatsuba_ppm 128-bit 1048576x8", "kara", 1_048_576, 128,
+             None),
+            ("karatsuba_ppm 256-bit 1048576x16", "kara", 1_048_576, 256,
+             None),
+            ("karatsuba_ppm 192-bit 1048576x12", "kara", 1_048_576, 192,
+             None)):
         a, b = operands(rng, (rows,), bits, dev)
-        yield label, (a, b)
+        yield label, kind, (a, b), ct
         if bits > 32:
-            yield f"{label}, views 4 B off", (view(a), view(b))
+            yield f"{label}, views 4 B off", kind, (view(a), view(b)), ct
 
 
 def main():
@@ -112,50 +149,76 @@ def main():
         return 2
     from repro_torch.kernels import _row_tiles
     from repro_torch.kernels import bank_fold as BF
+    from repro_torch.kernels import karatsuba_ppm as KP
     from repro_torch.kernels import mcim_fold as MF
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", torch.cuda.current_device())
-    old_bank_fn, old_ff_fn = other_kernels(args.other)
+    fns = other_kernels(args.other)
 
-    def old_bank(a, b, t):
-        n, rows, la = a.shape
-        lb = b.shape[-1]
-        out = torch.empty((n, rows, la + lb), dtype=torch.int32, device=dev)
-        check(old_bank_fn(a.data_ptr(), b.data_ptr(), t.data_ptr(),
-                          out.data_ptr(), n, rows, la, lb, t.shape[1],
-                          stream()) == 0, "other bank_fold refused")
-        return out
+    def call(symbol, ptrs, ints):
+        """DIR's bulk entry point where it has one and takes the launch,
+        else its per-thread one."""
+        bulk = fns.get(symbol.replace("_launch", "_bulk_launch"))
+        if bulk is not None and bulk(*ptrs, *ints, stream()) == 0:
+            return
+        check(fns[symbol](*ptrs, *ints, stream()) == 0,
+              f"other {symbol} refused")
 
-    def old_ff(a, b):
+    def old(kind, ct, *ops):
+        if kind == "bank":
+            a, b, t = ops
+            n, rows, la = a.shape
+            lb = b.shape[-1]
+            out = torch.empty((n, rows, la + lb), dtype=torch.int32,
+                              device=dev)
+            call("bank_fold_launch", (a.data_ptr(), b.data_ptr(),
+                                      t.data_ptr(), out.data_ptr()),
+                 (n, rows, la, lb, t.shape[1]))
+            return out
+        a, b = ops
         (bsz, la), lb = a.shape, b.shape[1]
-        geo = MF.fold_geometry(la, lb, 2, "ff")
         out = torch.empty((bsz, la + lb), dtype=torch.int32, device=dev)
-        check(old_ff_fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, la,
-                        lb, geo.ct_run, geo.chunk, stream()) == 0,
-              "other FF refused")
+        ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
+        if kind == "kara":
+            call("karatsuba_ppm_launch", ptrs, (bsz, la))
+        elif fns["mcim_fold_launch"] is not None:
+            call("mcim_fold_launch", ptrs, (bsz, la, lb))
+        else:
+            geo = MF.fold_geometry(la, lb, ct, kind)
+            call(f"mcim_fold_{kind}_launch", ptrs,
+                 (bsz, la, lb, geo.ct_run, geo.chunk))
         return out
 
-    def new_ff(a, b):
-        return MF.mcim_fold_mul(a, b, ct=2, schedule="ff")
+    def new(kind, ct, *ops):
+        if kind == "bank":
+            return BF.fused_bank_mul(*ops)
+        if kind == "kara":
+            return KP.karatsuba_ppm_mul(*ops)
+        return MF.mcim_fold_mul(*ops, ct=ct, schedule=kind)
+
+    def path(kind, ops):
+        aligned = _row_tiles.is_aligned(*ops[:2])
+        if kind == "bank":
+            return BF.launch_plan(*ops[0].shape, ops[1].shape[-1], aligned)
+        if kind == "kara":
+            return KP.launch_plan(ops[0].shape[0], ops[0].shape[1], aligned)
+        return _row_tiles.plan(ops[0].shape[0], ops[0].shape[1],
+                               ops[1].shape[1], aligned)
 
     print("other / this tree, ms warm/cold, in turns")
-    for label, ops in cases(dev, np.random.default_rng(14)):
+    for label, kind, ops, ct in cases(dev, np.random.default_rng(14)):
         if args.k not in label:
             continue
-        bank = len(ops) == 3
-        new, old = (BF.fused_bank_mul, old_bank) if bank else (new_ff, old_ff)
-        aligned = _row_tiles.is_aligned(*ops[:2])
-        path = (BF.launch_plan(*ops[0].shape, ops[1].shape[-1], aligned)
-                if bank else
-                MF.ff_launch_plan(*ops[0].shape, ops[1].shape[1], aligned))
-        check(torch.equal(new(*ops), old(*ops)), f"{label}: bits differ")
+        o = lambda *x, kind=kind, ct=ct: old(kind, ct, *x)  # noqa: E731
+        t = lambda *x, kind=kind, ct=ct: new(kind, ct, *x)  # noqa: E731
+        check(torch.equal(t(*ops), o(*ops)), f"{label}: bits differ")
         sets = cold_copies(ops)
         runs = [(name, graph_ms(lambda: f(*ops)), cold_graph_ms(f, sets))
-                for name, f in (("other", old), ("this", new),
-                                ("this", new), ("other", old))]
-        print(f"  {label} [{path}]: " + "; ".join(
+                for name, f in (("other", o), ("this", t), ("this", t),
+                                ("other", o))]
+        print(f"  {label} [{path(kind, ops)}]: " + "; ".join(
             f"{n} {w:.4f}/{c:.4f}" for n, w, c in runs), flush=True)
         del sets
     return 0

@@ -17,7 +17,7 @@
 // whose window holds it (on the bulk path a warp reads its instance's
 // windows with one load, a window word a lane, and shares them by
 // shuffles); one schoolbook pass then adds each partial product that
-// many times (tiles::ppm_weighted), the same uint32 column sums as the
+// many times (tiles::schoolbook), the same uint32 column sums as the
 // reference's loop of masked steps, bit for bit.
 //
 // Bound. At the registry widths a row moves 4 * 2 * (LA + LB) bytes for
@@ -90,6 +90,15 @@ struct BankFold {
         for (int jb = 0; jb < M; ++jb) c[jb] += jb >= lo && jb < hi;
       }
     }
+  }
+
+  template <int M>
+  __device__ __forceinline__ void product(const uint32_t (&a)[M],
+                                          const uint32_t (&b)[M],
+                                          const uint32_t (&w)[M],
+                                          uint32_t (&cols)[2 * M],
+                                          int n) const {
+    tiles::schoolbook<M>(a, b, w, cols, n);
   }
 };
 

@@ -31,28 +31,6 @@ __device__ __forceinline__ void load_row(const uint32_t* __restrict__ src,
   for (int k = 0; k < MAXL; ++k) dst[k] = k < n ? src[k] : 0u;
 }
 
-// Schoolbook partial products of a x b[jb] for every B limb jb in
-// [lo, hi), added at their absolute column i + jb (lo half) and
-// i + jb + 1 (hi half). Limbs outside the window add nothing, exactly as
-// the reference's masked B operand.
-template <int MAXL>
-__device__ __forceinline__ void ppm_window(const uint32_t (&a)[MAXL],
-                                           const uint32_t (&b)[MAXL],
-                                           int lo, int hi,
-                                           uint32_t (&acc)[2 * MAXL]) {
-#pragma unroll
-  for (int jb = 0; jb < MAXL; ++jb) {
-    if (jb >= lo && jb < hi) {
-#pragma unroll
-      for (int i = 0; i < MAXL; ++i) {
-        const uint32_t p = a[i] * b[jb];  // exact 16x16 -> 32
-        acc[i + jb] += p & kMask;
-        acc[i + jb + 1] += p >> kRadixBits;
-      }
-    }
-  }
-}
-
 // Final adder: carry-propagate columns [0, n) and store them as limbs;
 // the carry out of column n-1 is dropped (mod 2**(16n)).
 template <int W>

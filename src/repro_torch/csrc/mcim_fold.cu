@@ -7,26 +7,18 @@
 //   _kara_kernel (:203) folded Karatsuba at CT=3 (_kara_fold_call :277).
 //
 // Design. On the TPU the grid is (row tile, cycle) and the cycle axis
-// runs in order, the VMEM scratch playing the feedback register. Here a
-// thread owns one multiplication (row) and the cycle axis is a loop
-// inside it, the accumulator in registers; rows are independent threads
-// and blocks, the ragged edge masked. Kernels are templated on the
-// operand width so every limb array is indexed statically (registers).
-//
-// FB keeps its accumulator at absolute column positions: the TPU
-// kernel's "shift right by CHUNK limbs" becomes moving the window origin
-// up by CHUNK, and "retire CHUNK limbs" becomes leaving them below the
-// origin. Each cycle adds A x B[chunk j] and runs the 1CA over the same
-// LA + CHUNK + 1 window as the TPU kernel (clipped at LA+LB: columns
-// above the product only carry further up), so every stored limb has the
-// same bits. FF adds each cycle's partial products at offset j*CHUNK of
-// the register file and runs one carry pass at the end.
+// runs in order, the VMEM scratch playing the feedback register (FB) or
+// the register file (FF). Here a thread owns one multiplication (row)
+// and the cycle axis folds away inside it (FB, FF) or is a loop (the
+// folded Karatsuba), the accumulator in registers. Kernels are templated
+// on the operand width so every limb array is indexed statically.
 //
 // Bound: at the registry widths (1 to 8 limbs) memory bytes bound all
 // three on the H100 (8*(LA+LB) bytes a row against a few hundred
-// integer ops). fb_kernel and kara_kernel read rows with a stride of
-// LA words across a warp and write them with a stride of LA+LB words;
-// FF moves its rows as tiles (see the note above ff_kernel).
+// integer ops). FB and FF move their rows as tiles (row_tiles.cuh, see
+// the note above ExactRows); kara_kernel still reads rows with a stride
+// of LA words across a warp and writes them with a stride of LA+LB
+// words.
 #include "row_tiles.cuh"
 
 namespace {
@@ -34,103 +26,86 @@ namespace {
 using limbs::kMask;
 using limbs::kRadixBits;
 
-template <int MAXL>
-__global__ void fb_kernel(const uint32_t* __restrict__ a,
-                          const uint32_t* __restrict__ b,
-                          uint32_t* __restrict__ out, int bsz, int la,
-                          int lb, int ct, int chunk) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= bsz) return;
-  uint32_t av[MAXL], bv[MAXL], acc[2 * MAXL];
-  limbs::load_row<MAXL>(a + r * la, la, av);
-  limbs::load_row<MAXL>(b + r * lb, lb, bv);
-#pragma unroll
-  for (int k = 0; k < 2 * MAXL; ++k) acc[k] = 0u;
-  const int n_out = la + lb;
-
-  for (int j = 0; j < ct; ++j) {  // the MCIM clock cycles, in order
-    const int base = j * chunk;   // window origin after j feedback shifts
-    limbs::ppm_window<MAXL>(av, bv, base, base + chunk, acc);
-    // 1CA over the M + N/CT (+carry) window
-    const int top = min(base + la + chunk + 1, n_out);
-    uint32_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < 2 * MAXL; ++k) {
-      if (k >= base && k < top) {
-        const uint32_t tot = acc[k] + carry;
-        acc[k] = tot & kMask;
-        carry = tot >> kRadixBits;
-      }
-    }
-  }
-  uint32_t* dst = out + r * n_out;
-#pragma unroll
-  for (int k = 0; k < 2 * MAXL; ++k) {
-    if (k < n_out) dst[k] = acc[k];
-  }
-}
-
-// FF, the port of _ff_kernel (kernels/mcim_fold/kernel.py:146): CT
-// partial-product windows summed into one register file, carried once.
-// The windows [j*chunk, (j+1)*chunk) take every B limb below ct*chunk
-// once, so the cycle loop folds into one schoolbook pass with those
-// limbs at weight 1 (tiles::ppm_weighted: the same uint32 column sums,
-// bit for bit). What bounds it on the H100 is moving rows, not the
+// FB and FF, the ports of _fb_kernel and _ff_kernel
+// (kernels/mcim_fold/kernel.py:93, :146), compute the same function, the
+// exact product, so one pair of kernels runs both (their launches count
+// apart, on the host).
+// * FF sums CT partial-product windows into one register file and
+//   carries once: the windows [j*chunk, (j+1)*chunk) take every B limb
+//   below ct_run * chunk once.
+// * FB adds cycle j's window to the previous result shifted down by one
+//   chunk and runs its 1CA over the M + N/CT (+carry) window every cycle,
+//   retiring the low chunk. For every geometry fold_geometry allows
+//   (ct_run * chunk >= LB) each cycle's window sum stays below
+//   2**(16 (LA + chunk + 1)), so no 1CA drops a carry, and the limbs FB
+//   retires are the exact product. One schoolbook pass with every B limb
+//   below ct_run * chunk at weight 1, then one carry pass truncated to
+//   LA+LB, gives the same bits: the uint32 column sums stay below
+//   2 * 16 * (2**16 - 1) < 2**32, and both results are the product mod
+//   2**(16 (LA+LB)), which is the product itself.
+// As ct_run * chunk >= LB, and the limbs above LB are zero (the loads
+// zero-fill them; on the bulk path LA = LB), every B limb has weight 1:
+// neither the cycles nor the chunk reach the kernels, and both multiply
+// by tiles::schoolbook with all-ones weights, bit for bit with the
+// reference. What bounds them on the H100 is moving rows, not the
 // arithmetic (at 2 limbs a row reads 16 B and writes 16 B for about 32
 // integer operations: per million rows, 9.6 us of bytes at 3.35 TB/s
-// against 1.9 us of operations at 16.7 Tops/s), and a thread storing
-// its LA+LB limbs at a stride of LA+LB words touches many sectors a warp
+// against 1.9 us of operations at 16.7 Tops/s), and a thread storing its
+// LA+LB limbs at a stride of LA+LB words touches many sectors a warp
 // instruction. So the rows move as tiles (row_tiles.cuh):
-// * ff_bulk_kernel (LA = LB = 2, 4, 8 or 16, 16-byte-aligned spans): a
-//   persistent grid walks the row tiles; a ring of stages keeps the next
-//   tiles' A and B spans in flight as 1-D TMA bulk copies on mbarriers
-//   while the current tile computes, rows are read from shared memory
-//   as 8- or 16-byte vectors, and each tile's products leave in one bulk
-//   store (at 2 limbs each thread stores its 16-byte product itself), so
-//   every device access moves whole 16-byte-aligned spans. Tiles, stages
-//   and blocks an SM are compile-time constants of the width
-//   (tiles::Bulk);
-// * ff_kernel (everything else: misaligned views, odd row counts at 2
+// * fold_bulk_kernel (LA = LB = 2, 4, 8 or 16, 16-byte-aligned spans):
+//   a persistent grid walks the row tiles; a ring of stages
+//   keeps the next tiles' A and B spans in flight as 1-D TMA bulk copies
+//   on mbarriers while the current tile computes, rows are read from
+//   shared memory as 8- or 16-byte vectors, and each tile's products
+//   leave in one bulk store (at 2 limbs each thread stores its 16-byte
+//   product itself). Tiles, stages and blocks an SM are compile-time
+//   constants of the width (tiles::Bulk);
+// * fold_kernel (everything else: misaligned views, odd row counts at 2
 //   limbs, mixed or odd widths): one block a tile, rows loaded straight
 //   from device memory, products wider than 16 bytes stored through
 //   shared memory with neighbouring threads on neighbouring words.
 // The host picks the path (kernels/_row_tiles.py `plan`); a launch the
 // bulk path cannot take returns cudaErrorInvalidValue.
-// FF's limb weights: cycle j takes B limbs [j*chunk, (j+1)*chunk), so
-// every limb below ct*chunk enters the product once.
-struct FfFold {
-  int ct, chunk;
-
+struct ExactRows {
   template <int M>
   __device__ __forceinline__ void weights(int, uint32_t (&c)[M]) const {
 #pragma unroll
-    for (int jb = 0; jb < M; ++jb) c[jb] = jb < ct * chunk;
+    for (int jb = 0; jb < M; ++jb) c[jb] = 1u;
   }
   template <int M>
   __device__ __forceinline__ void warp_weights(int inst,
                                                uint32_t (&c)[M]) const {
     weights(inst, c);
   }
+  template <int M>
+  __device__ __forceinline__ void product(const uint32_t (&a)[M],
+                                          const uint32_t (&b)[M],
+                                          const uint32_t (&w)[M],
+                                          uint32_t (&cols)[2 * M],
+                                          int n) const {
+    tiles::schoolbook<M>(a, b, w, cols, n);
+  }
 };
 
 template <int L>
 __global__ void __launch_bounds__(tiles::Bulk<L>::kThreads)
-    ff_bulk_kernel(const uint32_t* __restrict__ a,
-                   const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
-                   int bsz, int ct, int chunk) {
+    fold_bulk_kernel(const uint32_t* __restrict__ a,
+                     const uint32_t* __restrict__ b,
+                     uint32_t* __restrict__ out, int bsz) {
   extern __shared__ __align__(128) uint8_t smem[];
-  tiles::bulk_walk<L>(a, b, out, 1, bsz, smem, FfFold{ct, chunk});
+  tiles::bulk_walk<L>(a, b, out, 1, bsz, smem, ExactRows{});
 }
 
 template <int MAXL>
 __global__ void __launch_bounds__(tiles::kTileRows)
-    ff_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-              uint32_t* __restrict__ out, int bsz, int la, int lb, int ct,
-              int chunk) {
+    fold_kernel(const uint32_t* __restrict__ a,
+                const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                int bsz, int la, int lb) {
   extern __shared__ __align__(128) uint8_t smem[];
   tiles::coalesced_tile<MAXL>(a, b, out, 0, blockIdx.x, bsz, la, lb,
                               reinterpret_cast<uint32_t*>(smem),
-                              FfFold{ct, chunk});
+                              ExactRows{});
 }
 
 // Karatsuba operand of cycle j on the shared (H+1)-limb PPM port:
@@ -221,58 +196,32 @@ inline dim3 grid_for(int bsz) {
 }
 
 template <int MAXL>
-cudaError_t launch_fb(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                      int bsz, int la, int lb, int ct, int chunk,
-                      cudaStream_t s) {
-  fb_kernel<MAXL><<<grid_for(bsz), limbs::kThreads, 0, s>>>(
-      a, b, out, bsz, la, lb, ct, chunk);
-  return cudaGetLastError();
-}
-
-template <int MAXL>
-cudaError_t launch_ff(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                      int bsz, int la, int lb, int ct, int chunk,
-                      cudaStream_t s) {
+cudaError_t launch_fold(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                        int bsz, int la, int lb, cudaStream_t s) {
   const int T = tiles::kTileRows;  // at most 16,896 B: no attribute needed
   const size_t smem = MAXL == 2 ? 0 : (size_t)T * tiles::pitch(la + lb) * 4;
-  ff_kernel<MAXL><<<(bsz + T - 1) / T, T, smem, s>>>(a, b, out, bsz, la,
-                                                     lb, ct, chunk);
+  fold_kernel<MAXL><<<(bsz + T - 1) / T, T, smem, s>>>(a, b, out, bsz, la,
+                                                       lb);
   return cudaGetLastError();
 }
 
 template <int L>
-cudaError_t launch_ff_bulk(const uint32_t* a, const uint32_t* b,
-                           uint32_t* out, int bsz, int ct, int chunk,
-                           cudaStream_t s) {
+cudaError_t launch_fold_bulk(const uint32_t* a, const uint32_t* b,
+                             uint32_t* out, int bsz, cudaStream_t s) {
   using B = tiles::Bulk<L>;
   const int tiles_n = (bsz + B::kTileRows - 1) / B::kTileRows;
   if ((long long)bsz * L % 4 || !tiles::aligned16(a) ||
       !tiles::aligned16(b) || !tiles::aligned16(out)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = ff_bulk_kernel<L>;
+  auto kernel = fold_bulk_kernel<L>;
   int blocks = 0;
   cudaError_t err = tiles::resident_blocks(kernel, B::kThreads, B::kBytes,
                                            B::kPerSm, &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<tiles_n < blocks ? tiles_n : blocks, B::kThreads, B::kBytes, s>>>(
-      a, b, out, bsz, ct, chunk);
+      a, b, out, bsz);
   return cudaGetLastError();
-}
-
-cudaError_t fold(bool fb, const void* a, const void* b, void* out, int bsz,
-                 int la, int lb, int ct, int chunk, void* stream) {
-  auto* pa = static_cast<const uint32_t*>(a);
-  auto* pb = static_cast<const uint32_t*>(b);
-  auto* po = static_cast<uint32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto go = fb ? launch_fb<16> : launch_ff<16>;
-  switch (limbs::bucket(la, lb)) {
-    case 2: go = fb ? launch_fb<2> : launch_ff<2>; break;
-    case 4: go = fb ? launch_fb<4> : launch_ff<4>; break;
-    case 8: go = fb ? launch_fb<8> : launch_ff<8>; break;
-  }
-  return go(pa, pb, po, bsz, la, lb, ct, chunk, s);
 }
 
 template <int N>
@@ -287,44 +236,50 @@ cudaError_t launch_kara(const void* a, const void* b, void* out, int bsz,
 
 }  // namespace
 
-extern "C" int mcim_fold_fb_launch(const void* a, const void* b, void* out,
-                                   int bsz, int la, int lb, int ct,
-                                   int chunk, void* stream) {
-  return fold(true, a, b, out, bsz, la, lb, ct, chunk, stream);
+// FB and FF (one function, the exact product) on the per-thread path:
+// a, b: (bsz, la), (bsz, lb) limbs; out: (bsz, la + lb); any widths up
+// to 16 limbs, any 4-byte alignment.
+extern "C" int mcim_fold_launch(const void* a, const void* b, void* out,
+                                int bsz, int la, int lb, void* stream) {
+  auto* pa = static_cast<const uint32_t*>(a);
+  auto* pb = static_cast<const uint32_t*>(b);
+  auto* po = static_cast<uint32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (limbs::bucket(la, lb)) {
+    case 2: return launch_fold<2>(pa, pb, po, bsz, la, lb, s);
+    case 4: return launch_fold<4>(pa, pb, po, bsz, la, lb, s);
+    case 8: return launch_fold<8>(pa, pb, po, bsz, la, lb, s);
+    default: return launch_fold<16>(pa, pb, po, bsz, la, lb, s);
+  }
 }
 
-extern "C" int mcim_fold_ff_launch(const void* a, const void* b, void* out,
-                                   int bsz, int la, int lb, int ct,
-                                   int chunk, void* stream) {
-  return fold(false, a, b, out, bsz, la, lb, ct, chunk, stream);
-}
-
-// FF's bulk path: LA = LB = 2, 4, 8 or 16 limbs, 16-byte-aligned
-// operands, bsz * LA a multiple of 4.
-extern "C" int mcim_fold_ff_bulk_launch(const void* a, const void* b,
-                                        void* out, int bsz, int la, int lb,
-                                        int ct, int chunk, void* stream) {
+// FB and FF on the bulk path: LA = LB = 2, 4, 8 or 16 limbs,
+// 16-byte-aligned operands, bsz * LA a multiple of 4.
+extern "C" int mcim_fold_bulk_launch(const void* a, const void* b,
+                                     void* out, int bsz, int la, int lb,
+                                     void* stream) {
   auto* pa = static_cast<const uint32_t*>(a);
   auto* pb = static_cast<const uint32_t*>(b);
   auto* po = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (la != lb) return cudaErrorInvalidValue;
   switch (la) {
-    case 2: return launch_ff_bulk<2>(pa, pb, po, bsz, ct, chunk, s);
-    case 4: return launch_ff_bulk<4>(pa, pb, po, bsz, ct, chunk, s);
-    case 8: return launch_ff_bulk<8>(pa, pb, po, bsz, ct, chunk, s);
-    case 16: return launch_ff_bulk<16>(pa, pb, po, bsz, ct, chunk, s);
+    case 2: return launch_fold_bulk<2>(pa, pb, po, bsz, s);
+    case 4: return launch_fold_bulk<4>(pa, pb, po, bsz, s);
+    case 8: return launch_fold_bulk<8>(pa, pb, po, bsz, s);
+    case 16: return launch_fold_bulk<16>(pa, pb, po, bsz, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// FF's bulk kernel's shape at la limbs on this device (tiles::bulk_shape).
-extern "C" int mcim_fold_ff_bulk_shape(int la, int* info) {
+// FB's and FF's bulk kernel's shape at la limbs on this device
+// (tiles::bulk_shape).
+extern "C" int mcim_fold_bulk_shape(int la, int* info) {
   switch (la) {
-    case 2: return tiles::bulk_shape<2>(ff_bulk_kernel<2>, info);
-    case 4: return tiles::bulk_shape<4>(ff_bulk_kernel<4>, info);
-    case 8: return tiles::bulk_shape<8>(ff_bulk_kernel<8>, info);
-    case 16: return tiles::bulk_shape<16>(ff_bulk_kernel<16>, info);
+    case 2: return tiles::bulk_shape<2>(fold_bulk_kernel<2>, info);
+    case 4: return tiles::bulk_shape<4>(fold_bulk_kernel<4>, info);
+    case 8: return tiles::bulk_shape<8>(fold_bulk_kernel<8>, info);
+    case 16: return tiles::bulk_shape<16>(fold_bulk_kernel<16>, info);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,17 +1,22 @@
 // Row tiles through shared memory: the load and store paths of the limb
-// kernels bank_fold_kernel (bank_fold.cu) and ff_kernel (mcim_fold.cu).
-//
-// Both kernels multiply independent rows: (rows, LA) x (rows, LB) ->
-// (rows, LA+LB) limbs, one thread a row, limbs in registers. What bounds
-// them on the H100 is moving those rows, not the integer work. This
-// header moves the rows and runs one schoolbook a row (ppm_weighted);
-// a kernel says what its fold multiplies through a functor whose
-// `weights(inst, c)` gives, for instance `inst`, how many of its steps
-// take each B limb (FF: 1 for every limb; bank_fold: the windows of the
-// instance's schedule table that hold it), and whose `warp_weights`
-// gives the same when every lane of the warp calls it. Weighting a limb
-// once a tile costs fewer instructions than looping over the steps for
-// every row, and the bits are the same (see ppm_weighted).
+// kernels that multiply independent rows, (rows, LA) x (rows, LB) ->
+// (rows, LA+LB) limbs, one thread a row, limbs in registers: bank_fold
+// (bank_fold.cu), FB and FF (mcim_fold.cu) on both paths below, and the
+// spatial Karatsuba (karatsuba_ppm.cu) on the per-thread one. What bounds
+// them on the H100 is moving those rows, so this header moves the rows
+// and leaves a row's arithmetic to the kernel's functor, which supplies
+// * `weights(inst, w)`: the state of a tile of instance `inst`, M words,
+//   and, for the bulk walk, `warp_weights(inst, w)`: the same, every
+//   lane of the warp calling it, once a tile;
+// * `product(a, b, w, cols, n)`: the row's product, (M, M) limbs -> 2M
+//   columns, carried to canonical limbs over columns [0, n).
+// bank_fold, FB and FF multiply by one weighted schoolbook (`schoolbook`
+// below): their state is how many of a tile's steps take each B limb
+// (FB and FF: 1 for every limb; bank_fold: the windows of the
+// instance's schedule table that hold it). Weighting a limb once a tile
+// costs fewer instructions than looping over the steps for every row,
+// and the bits are the same (see ppm_weighted). The Karatsuba functor
+// keeps no state and computes its three half-width products.
 //
 // Two paths, chosen on the host (kernels/_row_tiles.py `plan`):
 //
@@ -206,8 +211,8 @@ __device__ __forceinline__ void write_row(uint32_t* tile, int r,
 // Schoolbook partial products of a x b, B limb jb taken c[jb] times, at
 // their absolute columns i + jb (lo half) and i + jb + 1 (hi half). With
 // c[jb] the number of a fold's steps whose window holds jb this equals,
-// bit for bit, the fold's loop of windowed partial products
-// (limbs::ppm_window once a step): uint32 column sums are sums mod
+// bit for bit, the fold's loop of windowed partial products (the limbs
+// of each step's window, once a step): uint32 column sums are sums mod
 // 2**32, so c copies of a term add c times the term. B limbs of weight 0
 // add nothing and are skipped (a test the same for every thread of a
 // warp).
@@ -241,6 +246,20 @@ __device__ __forceinline__ void carry_pass(uint32_t (&cols)[W], int n) {
       carry = tot >> limbs::kRadixBits;
     }
   }
+}
+
+// The row product of a fold whose tile state is limb weights (bank_fold,
+// FB, FF): one weighted schoolbook pass, then one carry pass over
+// columns [0, n).
+template <int M>
+__device__ __forceinline__ void schoolbook(const uint32_t (&a)[M],
+                                           const uint32_t (&b)[M],
+                                           const uint32_t (&w)[M],
+                                           uint32_t (&cols)[2 * M], int n) {
+#pragma unroll
+  for (int c = 0; c < 2 * M; ++c) cols[c] = 0u;
+  ppm_weighted<M>(a, b, w, cols);
+  carry_pass<2 * M>(cols, n);
 }
 
 // The bulk path: n_inst instances of `rows` rows, rows of L words in a
@@ -301,7 +320,7 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
     int inst, row0, n;
     tile(it, inst, row0, n);
     const uint32_t* sa = ring + s * stage_words;
-    uint32_t wt[L];  // the tile's instance: how often each B limb enters
+    uint32_t wt[L];  // the state of the tile's instance
     fold.warp_weights(inst, wt);
     mbar_wait(bars + 8u * s, phase);
     uint32_t av[R][L], bv[R][L];
@@ -324,10 +343,7 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
       const int r = tid + k * T;
       if (r < n) {
         uint32_t acc[W];
-#pragma unroll
-        for (int c = 0; c < W; ++c) acc[c] = 0u;
-        ppm_weighted<L>(av[k], bv[k], wt, acc);
-        carry_pass<W>(acc, W);
+        fold.product(av[k], bv[k], wt, acc, W);
         if constexpr (kSlots == 0) {  // one 16-byte product a row
           reinterpret_cast<uint4*>(out)[first + r] =
               make_uint4(acc[0], acc[1], acc[2], acc[3]);
@@ -376,12 +392,7 @@ __device__ __forceinline__ void coalesced_tile(
     limbs::load_row<MAXL>(b + row * lb, lb, bv);
   }
   fold.weights(inst, w);
-  if (live) {
-#pragma unroll
-    for (int col = 0; col < 2 * MAXL; ++col) acc[col] = 0u;
-    ppm_weighted<MAXL>(av, bv, w, acc);
-    carry_pass<2 * MAXL>(acc, lo);
-  }
+  if (live) fold.product(av, bv, w, acc, lo);
   if constexpr (MAXL == 2) {
     if (live) {
 #pragma unroll

@@ -41,9 +41,10 @@ _FNS: dict = {}
 LAUNCHES = {"bank_fold": 0, "mcim_fold_fb": 0, "mcim_fold_ff": 0,
             "mcim_fold_karatsuba": 0, "prefix_adder": 0, "karatsuba_ppm": 0,
             "int8_matmul": 0}
-#: launches of ``bank_fold`` and FF by path (``kernels/_row_tiles.py``)
+#: launches of the row-tile kernels by path (``kernels/_row_tiles.py``)
 PATH_LAUNCHES = {k: {"bulk": 0, "per_thread": 0}
-                 for k in ("bank_fold", "mcim_fold_ff")}
+                 for k in ("bank_fold", "mcim_fold_fb", "mcim_fold_ff",
+                           "karatsuba_ppm")}
 
 
 def _nvcc() -> str:
@@ -173,5 +174,5 @@ def launch_counts() -> dict:
 
 
 def path_counts() -> dict:
-    """Launches of ``bank_fold`` and FF by path since the last reset."""
+    """Launches of the row-tile kernels by path since the last reset."""
     return {k: dict(v) for k, v in PATH_LAUNCHES.items()}

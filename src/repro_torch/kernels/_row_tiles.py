@@ -1,7 +1,8 @@
 """Which path of ``csrc/row_tiles.cuh`` moves a limb kernel's rows.
 
-``bank_fold_kernel`` (``csrc/bank_fold.cu``) and ``ff_kernel``
-(``csrc/mcim_fold.cu``) each have two paths:
+``bank_fold`` (``csrc/bank_fold.cu``), FB and FF (``csrc/mcim_fold.cu``)
+and the spatial Karatsuba (``csrc/karatsuba_ppm.cu``, whose bulk kernel
+takes rows of 2 limbs only) each have two paths:
 
 * ``"bulk"``: a persistent grid walks tiles of rows; 1-D TMA bulk
   copies bring each tile's A and B spans into a ring of shared buffers,

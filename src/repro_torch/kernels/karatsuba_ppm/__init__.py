@@ -1,4 +1,6 @@
-from .kernel import karatsuba_ppm_mul, karatsuba_ppm_mul_ref
+from .kernel import (BULK_N, PATHS, karatsuba_ppm_kernel, karatsuba_ppm_mul,
+                     karatsuba_ppm_mul_ref, launch_plan)
 from .ops import kara_mul
 
-__all__ = ["karatsuba_ppm_mul", "karatsuba_ppm_mul_ref", "kara_mul"]
+__all__ = ["karatsuba_ppm_mul", "karatsuba_ppm_mul_ref", "kara_mul",
+           "karatsuba_ppm_kernel", "launch_plan", "PATHS", "BULK_N"]

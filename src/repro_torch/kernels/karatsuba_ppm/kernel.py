@@ -3,10 +3,16 @@ version.
 
 Counterpart of the reference's ``kernels/karatsuba_ppm/{kernel,ref}.py``,
 whose TPU kernel ``_kara_kernel`` is hand-written CUDA in
-``csrc/karatsuba_ppm.cu`` here.  :func:`karatsuba_ppm_mul` launches it
-for CUDA tensors and runs :func:`karatsuba_ppm_mul_ref`, the core
-library's one-level Karatsuba multiplier, for CPU tensors; nothing else
-selects between them.
+``csrc/karatsuba_ppm.cu`` here, with the two paths of
+``csrc/row_tiles.cuh``: TMA bulk copies of row tiles on a persistent
+grid for rows of 2 limbs (16-byte-aligned operands, an even row count),
+and a coalesced per-thread path for every other N, misaligned views and
+odd row counts (at N = 4, 8 and 16 it matches or beats the bulk walk on
+the H100, ``PERF.md`` section 6).
+:func:`launch_plan` picks the path from the shape and alignment alone;
+:func:`karatsuba_ppm_mul` launches it for CUDA tensors and runs
+:func:`karatsuba_ppm_mul_ref`, the core library's one-level Karatsuba
+multiplier, for CPU tensors; nothing else selects between them.
 """
 from __future__ import annotations
 
@@ -14,12 +20,37 @@ import torch
 
 from repro_torch.core import limbs as L
 from repro_torch.core.karatsuba import karatsuba_mul
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _row_tiles
+from repro_torch.kernels._row_tiles import PATHS
 
 
 def karatsuba_ppm_mul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: (B, N) x (B, N) -> (B, 2N) int32 limbs."""
     return karatsuba_mul(a, b, levels=1, ct=3)
+
+
+#: the widths (limbs) at which the bulk kernel is built and taken
+BULK_N = (2,)
+
+
+def launch_plan(bsz: int, n: int, aligned: bool) -> str:
+    """The path of ``csrc/karatsuba_ppm.cu`` (one of :data:`PATHS`) that
+    takes a (B, N) x (B, N) product: ``"bulk"`` for N in :data:`BULK_N`
+    where TMA bulk copies can move every tile (16-byte-aligned operands,
+    ``aligned``; B * N a multiple of 4), else ``"per_thread"``.  See
+    :mod:`repro_torch.kernels._row_tiles`."""
+    if n not in BULK_N:
+        return "per_thread"
+    return _row_tiles.plan(bsz, n, n, aligned)
+
+
+def _check_shapes(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.ndim != 2 or a.shape != b.shape:
+        raise ValueError(f"karatsuba_ppm: expected (B, N) x (B, N), got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    if a.shape[1] % 2:
+        raise ValueError(f"karatsuba_ppm: even limb count required (pad "
+                         f"first), got {a.shape[1]}")
 
 
 def karatsuba_ppm_mul(a: torch.Tensor, b: torch.Tensor, *,
@@ -30,22 +61,40 @@ def karatsuba_ppm_mul(a: torch.Tensor, b: torch.Tensor, *,
     reference's TPU batch tile, kept for signature parity; it changes
     neither the result nor the CUDA launch.
     """
-    if a.ndim != 2 or a.shape != b.shape:
-        raise ValueError(f"karatsuba_ppm: expected (B, N) x (B, N), got "
-                         f"{tuple(a.shape)} x {tuple(b.shape)}")
-    bsz, n = a.shape
-    if n % 2:
-        raise ValueError(f"karatsuba_ppm: even limb count required (pad "
-                         f"first), got {n}")
+    _check_shapes(a, b)
     if tile_b < 1:
         raise ValueError(f"tile_b must be positive, got {tile_b}")
     if a.device.type == "cpu" and b.device.type == "cpu":
         return karatsuba_ppm_mul_ref(a, b)
+    bsz, n = a.shape
+    path = launch_plan(bsz, n, _row_tiles.is_aligned(a, b))
+    return karatsuba_ppm_kernel(a, b, path=path)
+
+
+def karatsuba_ppm_kernel(a: torch.Tensor, b: torch.Tensor, *,
+                         path: str) -> torch.Tensor:
+    """One launch of the path ``path`` (one of :data:`PATHS`) on CUDA
+    tensors.  :func:`karatsuba_ppm_mul` passes :func:`launch_plan`'s
+    choice; naming the other lets the card compare the paths on one
+    shape.  The bulk path raises on operands only the per-thread path
+    takes."""
+    _check_shapes(a, b)
+    if path not in PATHS:
+        raise ValueError(f"karatsuba_ppm: path must be one of {PATHS}, "
+                         f"got {path!r}")
+    bsz, n = a.shape
+    if path == "bulk" and launch_plan(
+            bsz, n, _row_tiles.is_aligned(a, b)) != "bulk":
+        raise ValueError(f"karatsuba_ppm: the bulk path does not take "
+                         f"{tuple(a.shape)} operands (rows of {BULK_N} "
+                         f"limbs, 16-byte aligned, B * N a multiple of 4)")
     _build.check_cuda_operands("karatsuba_ppm", a, b)
     _build.check_limbs("karatsuba_ppm", n, n)
     out = torch.empty((bsz, 2 * n), dtype=L.LIMB_DTYPE, device=a.device)
     if out.numel() == 0:
         return out
-    fn = _build.launcher("karatsuba_ppm", "karatsuba_ppm_launch", 3, 2)
-    _build.launch("karatsuba_ppm", fn, (a, b, out), (bsz, n))
+    symbol = ("karatsuba_ppm_bulk_launch" if path == "bulk"
+              else "karatsuba_ppm_launch")
+    fn = _build.launcher("karatsuba_ppm", symbol, 3, 2)
+    _build.launch("karatsuba_ppm", fn, (a, b, out), (bsz, n), path=path)
     return out

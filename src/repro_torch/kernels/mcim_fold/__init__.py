@@ -1,8 +1,8 @@
 from .ops import big_mul, vmem_bytes_per_step, batch_tile
-from .kernel import (PATHS, ff_launch_plan, mcim_fold_ff_kernel,
+from .kernel import (PATHS, fold_launch_plan, mcim_fold_kernel,
                      mcim_fold_mul, mcim_fold_mul_ref, fold_geometry,
                      FoldGeometry)
 
 __all__ = ["big_mul", "vmem_bytes_per_step", "batch_tile", "mcim_fold_mul",
            "mcim_fold_mul_ref", "fold_geometry", "FoldGeometry", "PATHS",
-           "ff_launch_plan", "mcim_fold_ff_kernel"]
+           "fold_launch_plan", "mcim_fold_kernel"]

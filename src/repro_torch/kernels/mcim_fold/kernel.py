@@ -5,10 +5,11 @@ three TPU kernel bodies (``_fb_kernel``, ``_ff_kernel`` and
 ``_kara_kernel``) are hand-written CUDA in ``csrc/mcim_fold.cu`` here.
 :func:`mcim_fold_mul` launches the kernel for a CUDA tensor and runs the
 plain PyTorch version (:func:`mcim_fold_mul_ref`, the core folded
-multipliers) for a CPU tensor; nothing else selects between them.  The
-FF kernel has two paths (TMA bulk copies of row tiles on a persistent
-grid, and a coalesced per-thread path); :func:`ff_launch_plan` picks
-one from the shape and alignment alone.
+multipliers) for a CPU tensor; nothing else selects between them.  FB
+and FF compute the exact product, so they share one kernel with two
+paths (TMA bulk copies of row tiles on a persistent grid, and a
+coalesced per-thread path); :func:`fold_launch_plan` picks one from the
+shape and alignment alone, and their launches count apart.
 """
 from __future__ import annotations
 
@@ -94,12 +95,13 @@ def mcim_fold_mul_ref(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
     return karatsuba_mul(a, b, levels=1, ct=ct)
 
 
-def ff_launch_plan(bsz: int, la: int, lb: int, aligned: bool) -> str:
-    """The path of FF's kernel in ``csrc/mcim_fold.cu`` (one of
+def fold_launch_plan(bsz: int, la: int, lb: int, aligned: bool) -> str:
+    """The path of FB's and FF's kernel in ``csrc/mcim_fold.cu`` (one of
     :data:`PATHS`) that takes a (B, LA) x (B, LB) product: ``"bulk"``
     where TMA bulk copies can move every tile (LA = LB in 2, 4, 8, 16;
     16-byte-aligned operands, ``aligned``; B * LA a multiple of 4), else
-    ``"per_thread"``.  See :mod:`repro_torch.kernels._row_tiles`."""
+    ``"per_thread"``: star's odd row count of 2-limb rows, for one.  See
+    :mod:`repro_torch.kernels._row_tiles`."""
     return _row_tiles.plan(bsz, la, lb, aligned)
 
 
@@ -129,48 +131,43 @@ def mcim_fold_mul(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
         return mcim_fold_mul_ref(a, b, ct=ct, schedule=schedule)
     name = f"mcim_fold_{schedule}"
     bsz, la, lb = _checked(name, a, b)
-    if schedule == "ff":
-        path = ff_launch_plan(bsz, la, lb, _row_tiles.is_aligned(a, b))
-        return mcim_fold_ff_kernel(a, b, ct=ct, path=path)
+    if schedule != "karatsuba":
+        path = fold_launch_plan(bsz, la, lb, _row_tiles.is_aligned(a, b))
+        return mcim_fold_kernel(a, b, schedule=schedule, path=path)
     out = torch.empty((bsz, la + lb), dtype=L.LIMB_DTYPE, device=a.device)
     if bsz == 0:
         return out
-    if schedule == "karatsuba":
-        fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 3)
-        _build.launch(name, fn, (a, b, out), (bsz, la, lb))
-    else:
-        geo = fold_geometry(la, lb, ct, schedule)
-        fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 5)
-        _build.launch(name, fn, (a, b, out),
-                      (bsz, la, lb, geo.ct_run, geo.chunk))
+    fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 3)
+    _build.launch(name, fn, (a, b, out), (bsz, la, lb))
     return out
 
 
-def mcim_fold_ff_kernel(a: torch.Tensor, b: torch.Tensor, *, ct: int,
-                        path: str) -> torch.Tensor:
-    """One launch of FF's path ``path`` (one of :data:`PATHS`) on CUDA
-    tensors.  :func:`mcim_fold_mul` passes :func:`ff_launch_plan`'s
-    choice; naming the other lets the card compare the paths on one
-    shape.  The bulk path raises on operands only the per-thread path
-    takes."""
-    _check_schedule(ct, "ff")
+def mcim_fold_kernel(a: torch.Tensor, b: torch.Tensor, *, schedule: str,
+                     path: str) -> torch.Tensor:
+    """One launch of FB's and FF's kernel on the path ``path`` (one of
+    :data:`PATHS`) on CUDA tensors, counted under ``mcim_fold_fb`` or
+    ``mcim_fold_ff`` as ``schedule`` says.  Both compute the exact
+    product, so neither the cycles nor the chunk reach the kernel.
+    :func:`mcim_fold_mul` passes :func:`fold_launch_plan`'s choice;
+    naming the other lets the card compare the paths on one shape.  The
+    bulk path raises on operands only the per-thread path takes."""
+    if schedule not in ("fb", "ff"):
+        raise ValueError(f"schedule must be fb or ff, got {schedule!r}")
+    name = f"mcim_fold_{schedule}"
     if path not in PATHS:
-        raise ValueError(f"mcim_fold_ff: path must be one of {PATHS}, "
-                         f"got {path!r}")
-    if a.ndim == 2 and b.ndim == 2 and path == "bulk" and ff_launch_plan(
+        raise ValueError(f"{name}: path must be one of {PATHS}, got "
+                         f"{path!r}")
+    if a.ndim == 2 and b.ndim == 2 and path == "bulk" and fold_launch_plan(
             a.shape[0], a.shape[1], b.shape[1],
             _row_tiles.is_aligned(a, b)) != "bulk":
-        raise ValueError(f"mcim_fold_ff: {tuple(a.shape)} x "
-                         f"{tuple(b.shape)} operands are not bulk copies' "
-                         f"spans; the bulk path does not take them")
-    bsz, la, lb = _checked("mcim_fold_ff", a, b)
+        raise ValueError(f"{name}: {tuple(a.shape)} x {tuple(b.shape)} "
+                         f"operands are not bulk copies' spans; the bulk "
+                         f"path does not take them")
+    bsz, la, lb = _checked(name, a, b)
     out = torch.empty((bsz, la + lb), dtype=L.LIMB_DTYPE, device=a.device)
     if bsz == 0:
         return out
-    geo = fold_geometry(la, lb, ct, "ff")
-    symbol = ("mcim_fold_ff_bulk_launch" if path == "bulk"
-              else "mcim_fold_ff_launch")
-    fn = _build.launcher("mcim_fold", symbol, 3, 5)
-    _build.launch("mcim_fold_ff", fn, (a, b, out),
-                  (bsz, la, lb, geo.ct_run, geo.chunk), path=path)
+    symbol = "mcim_fold_bulk_launch" if path == "bulk" else "mcim_fold_launch"
+    fn = _build.launcher("mcim_fold", symbol, 3, 3)
+    _build.launch(name, fn, (a, b, out), (bsz, la, lb), path=path)
     return out

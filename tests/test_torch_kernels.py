@@ -450,12 +450,12 @@ def test_ff_kernel_paths_match_plain_on_card(cuda_device, la, lb, rows,
     a, b = _pair(rows + ct, (rows,), 16 * la, 16 * lb)
     a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
     before = _build.path_counts()["mcim_fold_ff"][path]
-    if path == "bulk" and TF.ff_launch_plan(rows, la, lb, True) != "bulk":
+    if path == "bulk" and TF.fold_launch_plan(rows, la, lb, True) != "bulk":
         with pytest.raises(ValueError, match="bulk"):
-            TF.mcim_fold_ff_kernel(a, b, ct=ct, path=path)
+            TF.mcim_fold_kernel(a, b, schedule="ff", path=path)
         return
-    got = _counted("mcim_fold_ff", TF.mcim_fold_ff_kernel, a, b, ct=ct,
-                   path=path)
+    got = _counted("mcim_fold_ff", TF.mcim_fold_kernel, a, b,
+                   schedule="ff", path=path)
     assert torch.equal(got, TF.mcim_fold_mul_ref(a, b, ct=ct,
                                                  schedule="ff"))
     assert _build.path_counts()["mcim_fold_ff"][path] == before + 1
@@ -498,3 +498,112 @@ def test_bank_and_ff_kernels_replay_in_a_cuda_graph(cuda_device, offset):
     assert torch.equal(bank, TB.fused_bank_mul_ref(a, b, table))
     assert torch.equal(ff, TF.mcim_fold_mul_ref(fa, fb, ct=2,
                                                 schedule="ff"))
+
+
+# ---- FB and the spatial Karatsuba on both paths of row_tiles.cuh (cuda)
+
+# 1-limb rows (tbl8_w8 / tbl8_w16), 2 (star and fb of tp3p5_w32), 4
+# (tbl8_w64_lowpower), 8 (tp5over6_w128), 13 (200-bit), 16, mixed widths
+FB_WIDTHS = ((1, 1), (2, 2), (4, 4), (8, 8), (13, 13), (16, 16), (3, 5))
+# around the tiles, odd counts (per-thread at 2 limbs), star's rows
+FB_ROWS = (1, 7, 127, 129, 511, 513, 1001, 299_593)
+
+
+def _worst_rows(a, b):
+    """All-0xFFFF limbs in the first two rows: the largest columns."""
+    a[:2], b[:2] = TL.MASK, TL.MASK
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", TF.PATHS)
+@pytest.mark.parametrize("rows", FB_ROWS)
+@pytest.mark.parametrize("la,lb", FB_WIDTHS)
+def test_fb_kernel_paths_match_plain_on_card(cuda_device, la, lb, rows,
+                                             path):
+    ct = 1 + FB_ROWS.index(rows) % (lb + 2)      # star (CT=1) to CT > LB
+    a, b = _worst_rows(*_pair(rows + ct, (rows,), 16 * la, 16 * lb))
+    a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    before = _build.path_counts()["mcim_fold_fb"][path]
+    if path == "bulk" and TF.fold_launch_plan(rows, la, lb, True) != "bulk":
+        with pytest.raises(ValueError, match="bulk"):
+            TF.mcim_fold_kernel(a, b, schedule="fb", path=path)
+        return
+    got = _counted("mcim_fold_fb", TF.mcim_fold_kernel, a, b,
+                   schedule="fb", path=path)
+    assert torch.equal(got, TF.mcim_fold_mul_ref(a, b, ct=ct,
+                                                 schedule="fb"))
+    assert _build.path_counts()["mcim_fold_fb"][path] == before + 1
+    assert TL.batch_from_limbs(got[:64]) == _products(
+        a[:64].cpu().numpy(), b[:64].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", TK.PATHS)
+@pytest.mark.parametrize("rows", (1, 7, 129, 513, 1000, 4097))
+@pytest.mark.parametrize("n", (2, 4, 6, 8, 10, 12, 14, 16))
+def test_karatsuba_ppm_kernel_paths_match_plain_on_card(cuda_device, n,
+                                                        rows, path):
+    a, b = _worst_rows(*_pair(n * rows, (rows,), 16 * n))
+    a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    before = _build.path_counts()["karatsuba_ppm"][path]
+    if path == "bulk" and TK.launch_plan(rows, n, True) != "bulk":
+        with pytest.raises(ValueError, match="bulk"):
+            TK.karatsuba_ppm_kernel(a, b, path=path)
+        return
+    got = _counted("karatsuba_ppm", TK.karatsuba_ppm_kernel, a, b,
+                   path=path)
+    assert torch.equal(got, TK.karatsuba_ppm_mul_ref(a, b))
+    assert _build.path_counts()["karatsuba_ppm"][path] == before + 1
+    assert TL.batch_from_limbs(got[:64]) == _products(
+        a[:64].cpu().numpy(), b[:64].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2, 8, 16))
+def test_fb_and_karatsuba_kernels_on_misaligned_views(cuda_device, n):
+    """Views 4 bytes off a 16-byte boundary take the per-thread path
+    through the public entry points."""
+    a, b = _worst_rows(*_pair(n + 1, (1001,), 16 * n))
+    a, b = _on_card(a, cuda_device, 1), _on_card(b, cuda_device, 1)
+    assert TF.fold_launch_plan(1001, n, n, False) == "per_thread"
+    for ct in (1, 2):
+        before = _build.path_counts()["mcim_fold_fb"]["per_thread"]
+        got = _counted("mcim_fold_fb", TF.big_mul, a, b, ct=ct)
+        assert torch.equal(got, TF.mcim_fold_mul_ref(a, b, ct=ct))
+        assert _build.path_counts()["mcim_fold_fb"]["per_thread"] == \
+            before + 1
+    before = _build.path_counts()["karatsuba_ppm"]["per_thread"]
+    got = _counted("karatsuba_ppm", TK.kara_mul, a, b)
+    assert torch.equal(got, TK.karatsuba_ppm_mul_ref(a, b))
+    assert _build.path_counts()["karatsuba_ppm"]["per_thread"] == before + 1
+
+
+@pytest.mark.cuda
+def test_bulk_entry_points_refuse_and_never_reroute(cuda_device):
+    """The C bulk entry points return cudaErrorInvalidValue (1) on what a
+    bulk copy cannot take, launch nothing and write nothing: they never
+    hand the launch to the per-thread path."""
+    a, b = _pair(3, (1001,), 128)
+    a, b = _on_card(a, cuda_device, 1), _on_card(b, cuda_device, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.full((1001, 16), -1, dtype=torch.int32, device=cuda_device)
+    bulk = _build.launcher("mcim_fold", "mcim_fold_bulk_launch", 3, 3)
+    kara = _build.launcher("karatsuba_ppm", "karatsuba_ppm_bulk_launch", 3,
+                           2)
+    ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
+    assert bulk(*ptrs, 1001, 8, 8, stream) == 1            # misaligned
+    assert kara(*ptrs, 1000, 2, stream) == 1
+    whole = torch.zeros((1001, 8), dtype=torch.int32, device=cuda_device)
+    ptrs = (whole.data_ptr(), whole.data_ptr(), out.data_ptr())
+    assert bulk(*ptrs, 1001, 4, 8, stream) == 1            # LA != LB
+    assert bulk(*ptrs, 1001, 6, 6, stream) == 1            # 6 limbs
+    assert kara(*ptrs, 1001, 2, stream) == 1               # odd rows
+    assert kara(*ptrs, 1000, 8, stream) == 1               # N = 8
+    torch.cuda.synchronize()
+    assert bool((out == -1).all())
+    for schedule in ("fb", "ff"):
+        with pytest.raises(ValueError, match="bulk"):
+            TF.mcim_fold_kernel(a, b, schedule=schedule, path="bulk")
+    with pytest.raises(ValueError, match="bulk"):
+        TK.karatsuba_ppm_kernel(a, b, path="bulk")
