@@ -21,16 +21,17 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    graph and replayed, so no host work sits between launches; the older
    figure (20 calls launched from Python) is printed beside them.
    The row-tile kernels (``bank_fold`` on both designs, FB at star's and
-   the 8-limb FB's rows, FF, the spatial Karatsuba at 128 and 256 bits)
-   also get a cold figure, for the kernel and the library call: the
+   the 8-limb FB's rows, FF, the folded Karatsuba at its 8-limb rows, the
+   spatial Karatsuba at 128 and 256 bits) also get a cold figure, for
+   the kernel and the library call: the
    graph's calls rotate through copies of the operands whose bytes
    exceed twice the L2, each call writing an output of its own (only the
    cold figure is held to the HBM bound: warm operands stay in the L2);
    their other path (bulk or per-thread) is held against the plain
    version and timed on the same inputs, where it takes them (the bulk
    path does not take star's odd row count, nor the spatial
-   Karatsuba's rows above 2 limbs); the
-   spatial Karatsuba's cold time is also given as a share of the
+   Karatsuba's rows above 2 limbs; the folded Karatsuba has no bulk
+   path); both Karatsubas' cold times are also given as a share of the
    reference's operation count (5 operations a limb product); and FF and
    the int64 ``*`` are timed warm over 0.5-2 million 2-limb rows, where
    each falls out of the L2.
@@ -242,8 +243,8 @@ def ops_per_row(kernel, la, lb, windows=None, ct_run=1, chunk=1):
 
 
 def kara_row_ops(n):
-    """Integer operations a row of N limbs of the spatial Karatsuba
-    kernel issues (``csrc/karatsuba_ppm.cu`` ``KaraRows``): 2 a limb
+    """Integer operations a row of N limbs of either Karatsuba kernel
+    issues (``csrc/kara_rows.cuh`` ``KaraRows``): 2 a limb
     product of T0, T1 and T2 (one wide multiply-add, a 64-bit result), 4
     a 64-bit column carried (add with carry out and in, mask, shift), 4
     a limb of the two half sums (two adds, mask, shift), 2 a placed limb
@@ -549,12 +550,19 @@ def phase_kernels(device):
                 x, y, ct=ct, schedule=s)
             plain = lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul_ref(  # noqa
                 x, y, ct=ct, schedule=s)
+            ops = ref_ops = n * ops_per_row(key, d.la, d.lb,
+                                            ct_run=geo.ct_run,
+                                            chunk=geo.chunk)
+            if sched == "karatsuba":
+                # what its body issues (KaraRows on rows of an even N);
+                # the reference's count is the yardstick, as for #6
+                ops = n * kara_row_ops(geo.scratch_width // 2)
             entry = kernel_entry(
                 label, key, src_fold, f"{ref_fold}:{line}", run, plain,
-                (fa, fb_), n * ops_per_row(key, d.la, d.lb,
-                                           ct_run=geo.ct_run,
-                                           chunk=geo.chunk),
-                library=lib)
+                (fa, fb_), ops, library=lib)
+            if sched == "karatsuba":
+                add_cold(entry, run, (fa, fb_), yardstick=(
+                    "the reference's operation count", bound(0, ref_ops)[0]))
             if sched == "fb":                    # the row-tile paths
                 other_path(entry, lambda x, y, path: MF.mcim_fold_kernel(
                                x, y, schedule="fb", path=path),

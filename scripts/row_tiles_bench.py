@@ -8,7 +8,8 @@
 Builds DIR's ``src/repro_torch/csrc/{bank_fold,mcim_fold,karatsuba_ppm}.cu``
 and calls their C entry points (``bank_fold_launch``, FB's and FF's
 ``mcim_fold_launch``, or ``mcim_fold_{fb,ff}_launch`` in commits before
-the two shared one kernel, ``karatsuba_ppm_launch``, and their bulk
+the two shared one kernel, the folded Karatsuba's
+``mcim_fold_karatsuba_launch``, ``karatsuba_ppm_launch``, and their bulk
 counterparts ``*_bulk_launch`` where DIR has them, taking a launch a
 bulk entry point refuses to the per-thread one) beside this tree's
 wrappers, on the main path's shapes and on shapes of the per-thread
@@ -68,6 +69,7 @@ def other_kernels(parent):
             ("mcim_fold", "mcim_fold_fb_launch", 3, 5),
             ("mcim_fold", "mcim_fold_ff_launch", 3, 5),
             ("mcim_fold", "mcim_fold_ff_bulk_launch", 3, 5),
+            ("mcim_fold", "mcim_fold_karatsuba_launch", 3, 3),
             ("karatsuba_ppm", "karatsuba_ppm_launch", 3, 2),
             ("karatsuba_ppm", "karatsuba_ppm_bulk_launch", 3, 2)):
         fn = getattr(libs[lib], symbol, None)
@@ -81,7 +83,8 @@ def other_kernels(parent):
 
 def cases(dev, rng):
     """(label, kind, operands, ct): kind "bank" takes 3 operands, "fb",
-    "ff" and "kara" 2."""
+    "ff", "karatsuba" (the folded Karatsuba) and "kara" (the spatial
+    one) 2."""
     def view(x, offset=1):   # the same values, `offset` words off 16 bytes
         flat = torch.zeros(x.numel() + offset, dtype=torch.int32,
                            device=dev)
@@ -135,6 +138,24 @@ def cases(dev, rng):
         yield label, kind, (a, b), ct
         if bits > 32:
             yield f"{label}, views 4 B off", kind, (view(a), view(b)), ct
+    # the folded Karatsuba at tp5over6_w128's rows: N = 8, 14 (13 limbs)
+    # and 6 (3 x 5 limbs), per-thread path only
+    for label, bits_a, bits_b in (
+            ("karatsuba fold of tp5over6_w128 419430x8", 128, 128),
+            ("karatsuba fold 419430x13 (200-bit)", 200, 200),
+            ("karatsuba fold 419430, 3x5 limbs", 48, 80)):
+        a = operands(rng, (419_430,), bits_a, dev)[0]
+        b = operands(rng, (419_430,), bits_b, dev)[1]
+        yield label, "karatsuba", (a, b), 3
+        yield f"{label}, views 4 B off", "karatsuba", (view(a), view(b)), 3
+    # the same 8-limb rows through both Karatsubas at the other's row
+    # count: whether the row count (waves of tiles) or the kernel sets
+    # their shares of the byte bound apart
+    for label, kind, rows in (
+            ("karatsuba fold 1048576x8", "karatsuba", 1_048_576),
+            ("karatsuba_ppm 128-bit 419430x8", "kara", 419_430)):
+        a, b = operands(rng, (rows,), 128, dev)
+        yield label, kind, (a, b), 3 if kind == "karatsuba" else None
 
 
 def main():
@@ -183,6 +204,8 @@ def main():
         ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
         if kind == "kara":
             call("karatsuba_ppm_launch", ptrs, (bsz, la))
+        elif kind == "karatsuba":
+            call("mcim_fold_karatsuba_launch", ptrs, (bsz, la, lb))
         elif fns["mcim_fold_launch"] is not None:
             call("mcim_fold_launch", ptrs, (bsz, la, lb))
         else:
@@ -204,6 +227,8 @@ def main():
             return BF.launch_plan(*ops[0].shape, ops[1].shape[-1], aligned)
         if kind == "kara":
             return KP.launch_plan(ops[0].shape[0], ops[0].shape[1], aligned)
+        if kind == "karatsuba":
+            return "per_thread"
         return _row_tiles.plan(ops[0].shape[0], ops[0].shape[1],
                                ops[1].shape[1], aligned)
 

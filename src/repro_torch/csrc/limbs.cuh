@@ -31,20 +31,4 @@ __device__ __forceinline__ void load_row(const uint32_t* __restrict__ src,
   for (int k = 0; k < MAXL; ++k) dst[k] = k < n ? src[k] : 0u;
 }
 
-// Final adder: carry-propagate columns [0, n) and store them as limbs;
-// the carry out of column n-1 is dropped (mod 2**(16n)).
-template <int W>
-__device__ __forceinline__ void carry_store(const uint32_t (&cols)[W], int n,
-                                            uint32_t* __restrict__ dst) {
-  uint32_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    if (k < n) {
-      const uint32_t tot = cols[k] + carry;
-      dst[k] = tot & kMask;
-      carry = tot >> kRadixBits;
-    }
-  }
-}
-
 }  // namespace limbs

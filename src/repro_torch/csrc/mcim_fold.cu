@@ -7,24 +7,33 @@
 //   _kara_kernel (:203) folded Karatsuba at CT=3 (_kara_fold_call :277).
 //
 // Design. On the TPU the grid is (row tile, cycle) and the cycle axis
-// runs in order, the VMEM scratch playing the feedback register (FB) or
-// the register file (FF). Here a thread owns one multiplication (row)
-// and the cycle axis folds away inside it (FB, FF) or is a loop (the
-// folded Karatsuba), the accumulator in registers. Kernels are templated
-// on the operand width so every limb array is indexed statically.
+// runs in order, the VMEM scratch playing the feedback register (FB),
+// the register file (FF) or the compressor feedback (Karatsuba). Here a
+// thread owns one multiplication (row) and the cycle axis folds away
+// inside it: every kernel computes the row's exact product, limbs in
+// registers, templated on the operand width so every limb array is
+// indexed statically, and the rows move as tiles (row_tiles.cuh).
+//
+// The folded Karatsuba is exact too. Its three cycles run one shared PPM
+// on (A0, B0), (A1, B1) and (A0+A1, B0+B1) and accumulate
+// P = T0 + T1<<2H + (T2 - T1 - T0)<<H on 2N columns, the operands padded
+// with zero limbs to N = max(LA, LB) rounded up to even, and its final
+// adder keeps LA+LB limbs: the product mod 2**(16 (LA+LB)), which is the
+// product itself, as an LA-limb times an LB-limb operand is below that.
+// kara_fold_kernel computes the same value with the spatial Karatsuba's
+// row arithmetic (kara_rows.cuh, KaraRows<N>): the per-thread tile loads
+// LA and LB limbs zero-filled to N, KaraRows::product forms the 2N
+// columns of the padded rows' product (A*B mod 2**(32N), with the
+// complements) and carries them over [0, LA+LB), and the tile stores
+// LA+LB limbs a row. Both are the exact product, so the bits are the
+// reference's.
 //
 // Bound: at the registry widths (1 to 8 limbs) memory bytes bound all
-// three on the H100 (8*(LA+LB) bytes a row against a few hundred
-// integer ops). FB and FF move their rows as tiles (row_tiles.cuh, see
-// the note above ExactRows); kara_kernel still reads rows with a stride
-// of LA words across a warp and writes them with a stride of LA+LB
-// words.
-#include "row_tiles.cuh"
+// three on the H100: a row moves 4 (LA + LB) bytes in and 4 (LA + LB)
+// out against a few hundred integer operations.
+#include "kara_rows.cuh"
 
 namespace {
-
-using limbs::kMask;
-using limbs::kRadixBits;
 
 // FB and FF, the ports of _fb_kernel and _ff_kernel
 // (kernels/mcim_fold/kernel.py:93, :146), compute the same function, the
@@ -108,100 +117,28 @@ __global__ void __launch_bounds__(tiles::kTileRows)
                               ExactRows{});
 }
 
-// Karatsuba operand of cycle j on the shared (H+1)-limb PPM port:
-// X0, X1, or X0+X1 normalized to H+1 limbs.
+// The folded Karatsuba on the per-thread path: rows of LA and LB limbs
+// as rows of N, N = max(LA, LB) rounded up to even.
 template <int N>
-__device__ __forceinline__ void kara_port(const uint32_t (&x)[N], int j,
-                                          uint32_t (&port)[N / 2 + 1]) {
-  constexpr int H = N / 2;
-  if (j < 2) {
-#pragma unroll
-    for (int k = 0; k < H; ++k) port[k] = x[j * H + k];
-    port[H] = 0u;
-    return;
-  }
-  uint32_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    const uint32_t tot = x[k] + x[H + k] + carry;
-    port[k] = tot & kMask;
-    carry = tot >> kRadixBits;
-  }
-  port[H] = carry & kMask;
+__global__ void __launch_bounds__(tiles::kTileRows)
+    kara_fold_kernel(const uint32_t* __restrict__ a,
+                     const uint32_t* __restrict__ b,
+                     uint32_t* __restrict__ out, int bsz, int la, int lb) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  tiles::coalesced_tile<N>(a, b, out, 0, blockIdx.x, bsz, la, lb,
+                           reinterpret_cast<uint32_t*>(smem),
+                           kara::KaraRows<N>{});
 }
 
-// N: operand limbs padded to an even count (the reference pads on the
-// host; here the loads zero-fill). The scratch accumulator is 2N wide.
-template <int N>
-__global__ void kara_kernel(const uint32_t* __restrict__ a,
-                            const uint32_t* __restrict__ b,
-                            uint32_t* __restrict__ out, int bsz, int la,
-                            int lb) {
-  constexpr int H = N / 2, HP = H + 1, W = 2 * N;
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= bsz) return;
-  uint32_t av[N], bv[N], acc[W];
-  limbs::load_row<N>(a + r * la, la, av);
-  limbs::load_row<N>(b + r * lb, lb, bv);
-#pragma unroll
-  for (int k = 0; k < W; ++k) acc[k] = 0u;
-
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {  // the three Karatsuba cycles, in order
-    uint32_t x[HP], y[HP], cols[2 * HP], t[2 * HP];
-    kara_port<N>(av, j, x);
-    kara_port<N>(bv, j, y);
-    // shared PPM and its 1CA: T_j as 2*HP canonical limbs
-#pragma unroll
-    for (int k = 0; k < 2 * HP; ++k) cols[k] = 0u;
-#pragma unroll
-    for (int jj = 0; jj < HP; ++jj) {
-#pragma unroll
-      for (int i = 0; i < HP; ++i) {
-        const uint32_t p = x[i] * y[jj];
-        cols[i + jj] += p & kMask;
-        cols[i + jj + 1] += p >> kRadixBits;
-      }
-    }
-    uint32_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < 2 * HP; ++k) {
-      const uint32_t tot = cols[k] + carry;
-      t[k] = tot & kMask;
-      carry = tot >> kRadixBits;
-    }
-    // P = T0 + T1<<2H + (T2 - T1 - T0)<<H: +T_j at its place ...
-    const int shift = j == 0 ? 0 : j == 1 ? 2 * H : H;
-#pragma unroll
-    for (int c = 0; c < 2 * HP; ++c) {
-      if (c + shift < W) acc[c + shift] += t[c];
-    }
-    // ... and, for T0 and T1, -(T_j<<H) as NOT (MASK - placed column,
-    // never wraps) + 1 in column 0; the 2**(16W) wrap is dropped below
-    if (j < 2) {
-#pragma unroll
-      for (int c = 0; c < W; ++c) {
-        const uint32_t placed = (c >= H && c - H < 2 * HP) ? t[c - H] : 0u;
-        acc[c] += kMask - placed;
-      }
-      acc[0] += 1u;
-    }
-  }
-  // single final-adder pass, truncated to LA+LB limbs
-  limbs::carry_store<W>(acc, la + lb, out + r * (la + lb));
-}
-
-inline dim3 grid_for(int bsz) {
-  return dim3((bsz + limbs::kThreads - 1) / limbs::kThreads);
-}
-
-template <int MAXL>
-cudaError_t launch_fold(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                        int bsz, int la, int lb, cudaStream_t s) {
+// A per-thread kernel of MAXL limbs (fold_kernel, kara_fold_kernel): one
+// block a tile.
+template <int MAXL, class Kernel>
+cudaError_t launch_tiles(Kernel kernel, const uint32_t* a, const uint32_t* b,
+                         uint32_t* out, int bsz, int la, int lb,
+                         cudaStream_t s) {
   const int T = tiles::kTileRows;  // at most 16,896 B: no attribute needed
   const size_t smem = MAXL == 2 ? 0 : (size_t)T * tiles::pitch(la + lb) * 4;
-  fold_kernel<MAXL><<<(bsz + T - 1) / T, T, smem, s>>>(a, b, out, bsz, la,
-                                                       lb);
+  kernel<<<(bsz + T - 1) / T, T, smem, s>>>(a, b, out, bsz, la, lb);
   return cudaGetLastError();
 }
 
@@ -227,11 +164,10 @@ cudaError_t launch_fold_bulk(const uint32_t* a, const uint32_t* b,
 template <int N>
 cudaError_t launch_kara(const void* a, const void* b, void* out, int bsz,
                         int la, int lb, void* stream) {
-  kara_kernel<N><<<grid_for(bsz), limbs::kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<uint32_t*>(out), bsz, la, lb);
-  return cudaGetLastError();
+  return launch_tiles<N>(kara_fold_kernel<N>, static_cast<const uint32_t*>(a),
+                         static_cast<const uint32_t*>(b),
+                         static_cast<uint32_t*>(out), bsz, la, lb,
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -246,10 +182,11 @@ extern "C" int mcim_fold_launch(const void* a, const void* b, void* out,
   auto* po = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (limbs::bucket(la, lb)) {
-    case 2: return launch_fold<2>(pa, pb, po, bsz, la, lb, s);
-    case 4: return launch_fold<4>(pa, pb, po, bsz, la, lb, s);
-    case 8: return launch_fold<8>(pa, pb, po, bsz, la, lb, s);
-    default: return launch_fold<16>(pa, pb, po, bsz, la, lb, s);
+    case 2: return launch_tiles<2>(fold_kernel<2>, pa, pb, po, bsz, la, lb, s);
+    case 4: return launch_tiles<4>(fold_kernel<4>, pa, pb, po, bsz, la, lb, s);
+    case 8: return launch_tiles<8>(fold_kernel<8>, pa, pb, po, bsz, la, lb, s);
+    default:
+      return launch_tiles<16>(fold_kernel<16>, pa, pb, po, bsz, la, lb, s);
   }
 }
 
@@ -284,6 +221,8 @@ extern "C" int mcim_fold_bulk_shape(int la, int* info) {
   }
 }
 
+// The folded Karatsuba: a, b: (bsz, la), (bsz, lb) limbs; out: (bsz,
+// la + lb); any widths up to 16 limbs, any 4-byte alignment.
 extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
                                           void* out, int bsz, int la,
                                           int lb, void* stream) {

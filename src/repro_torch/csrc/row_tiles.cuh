@@ -1,8 +1,9 @@
 // Row tiles through shared memory: the load and store paths of the limb
 // kernels that multiply independent rows, (rows, LA) x (rows, LB) ->
 // (rows, LA+LB) limbs, one thread a row, limbs in registers: bank_fold
-// (bank_fold.cu), FB and FF (mcim_fold.cu) on both paths below, and the
-// spatial Karatsuba (karatsuba_ppm.cu) on the per-thread one. What bounds
+// (bank_fold.cu), FB and FF (mcim_fold.cu) and the spatial Karatsuba
+// (karatsuba_ppm.cu) on both paths below, and the folded Karatsuba
+// (mcim_fold.cu) on the per-thread one. What bounds
 // them on the H100 is moving those rows, so this header moves the rows
 // and leaves a row's arithmetic to the kernel's functor, which supplies
 // * `weights(inst, w)`: the state of a tile of instance `inst`, M words,
@@ -15,8 +16,9 @@
 // (FB and FF: 1 for every limb; bank_fold: the windows of the
 // instance's schedule table that hold it). Weighting a limb once a tile
 // costs fewer instructions than looping over the steps for every row,
-// and the bits are the same (see ppm_weighted). The Karatsuba functor
-// keeps no state and computes its three half-width products.
+// and the bits are the same (see ppm_weighted). Both Karatsuba kernels
+// share one functor (kara_rows.cuh, KaraRows), which keeps no state and
+// computes its three half-width products.
 //
 // Two paths, chosen on the host (kernels/_row_tiles.py `plan`):
 //

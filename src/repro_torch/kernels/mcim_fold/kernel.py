@@ -9,7 +9,11 @@ multipliers) for a CPU tensor; nothing else selects between them.  FB
 and FF compute the exact product, so they share one kernel with two
 paths (TMA bulk copies of row tiles on a persistent grid, and a
 coalesced per-thread path); :func:`fold_launch_plan` picks one from the
-shape and alignment alone, and their launches count apart.
+shape and alignment alone, and their launches count apart.  The folded
+Karatsuba is the exact product too: its kernel runs the spatial
+Karatsuba's row arithmetic (``csrc/kara_rows.cuh``) on rows zero-padded
+to an even N = max(LA, LB), on the per-thread path alone, one launch a
+call counted under ``mcim_fold_karatsuba``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no jax, nothing of the reference package.
 
-``src/repro_torch/**.py`` and ``chip_smoke.py`` may import torch, numpy,
-the standard library and ``repro_torch`` -- never ``jax`` or ``repro``.
+``src/repro_torch/**.py``, ``chip_smoke.py`` and
+``scripts/row_tiles_bench.py`` (both run on a machine without jax) may
+import torch, numpy, the standard library, ``repro_torch`` and
+``chip_smoke`` -- never ``jax`` or ``repro``.
 """
 import ast
 import pathlib
@@ -24,7 +26,7 @@ def _imported_roots(path):
 
 def test_no_jax_or_reference_imports_in_the_port():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "row_tiles_bench.py"]
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for sub in ("core", "core/bank", "designs", "kernels/bank_fold",

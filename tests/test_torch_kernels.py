@@ -563,7 +563,8 @@ def test_karatsuba_ppm_kernel_paths_match_plain_on_card(cuda_device, n,
 @pytest.mark.parametrize("n", (2, 8, 16))
 def test_fb_and_karatsuba_kernels_on_misaligned_views(cuda_device, n):
     """Views 4 bytes off a 16-byte boundary take the per-thread path
-    through the public entry points."""
+    through the public entry points (the folded Karatsuba has no other
+    path; here also at mixed and odd widths)."""
     a, b = _worst_rows(*_pair(n + 1, (1001,), 16 * n))
     a, b = _on_card(a, cuda_device, 1), _on_card(b, cuda_device, 1)
     assert TF.fold_launch_plan(1001, n, n, False) == "per_thread"
@@ -577,6 +578,67 @@ def test_fb_and_karatsuba_kernels_on_misaligned_views(cuda_device, n):
     got = _counted("karatsuba_ppm", TK.kara_mul, a, b)
     assert torch.equal(got, TK.karatsuba_ppm_mul_ref(a, b))
     assert _build.path_counts()["karatsuba_ppm"]["per_thread"] == before + 1
+    for la, lb in ((n, n), (n - 1, n), (3, 5)):     # the folded Karatsuba
+        fa, fb_ = a[:, :la].contiguous(), b[:, :lb].contiguous()
+        fa, fb_ = (_on_card(x.cpu().numpy(), cuda_device, 1)
+                   for x in (fa, fb_))
+        got = _counted("mcim_fold_karatsuba", TF.big_mul, fa, fb_, ct=3,
+                       schedule="karatsuba")
+        assert torch.equal(got, TF.mcim_fold_mul_ref(
+            fa, fb_, ct=3, schedule="karatsuba"))
+
+
+# ------------------------ the folded Karatsuba on the per-thread path (cuda)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", (0, 1, 127, 129, 1001))
+@pytest.mark.parametrize("lb", range(1, 17))
+def test_kara_fold_kernel_matches_plain_on_card(cuda_device, lb, rows):
+    """Every LA, LB <= 16 (rows zero-filled to an even N on the card),
+    one launch a call (a call of 0 rows launches nothing)."""
+    for la in range(1, 17):
+        a, b = _pair(100 * la + lb + rows, (rows,), 16 * la, 16 * lb)
+        if rows:
+            a, b = _worst_rows(a, b)
+        a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+        before = _build.launch_counts()["mcim_fold_karatsuba"]
+        got = TF.mcim_fold_mul(a, b, ct=3, schedule="karatsuba")
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["mcim_fold_karatsuba"] == \
+            before + (rows > 0)
+        assert got.shape == (rows, la + lb)
+        assert torch.equal(got, TF.mcim_fold_mul_ref(a, b, ct=3,
+                                                     schedule="karatsuba"))
+        assert TL.batch_from_limbs(got) == _products(a.cpu().numpy(),
+                                                     b.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("la,lb", ((8, 8), (13, 13), (3, 5)))
+def test_kara_fold_kernel_replays_in_a_cuda_graph(cuda_device, la, lb,
+                                                  offset):
+    """A captured launch reads the operands' storage at replay: new
+    values in the same storage give their own product."""
+    a, b = (_on_card(x, cuda_device, offset)
+            for x in _pair(la * lb, (4097,), 16 * la, 16 * lb))
+    run = lambda: TF.mcim_fold_mul(a, b, ct=3,  # noqa: E731
+                                   schedule="karatsuba")
+    run()                                # first launch outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.launch_counts()["mcim_fold_karatsuba"]
+    with torch.cuda.graph(graph):
+        got = run()
+    assert _build.launch_counts()["mcim_fold_karatsuba"] == before + 1
+    x, y = _worst_rows(*_pair(la + lb, (4097,), 16 * la, 16 * lb))
+    a.copy_(TL.from_numpy(x, cuda_device))
+    b.copy_(TL.from_numpy(y, cuda_device))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, TF.mcim_fold_mul_ref(a, b, ct=3,
+                                                 schedule="karatsuba"))
+    assert TL.batch_from_limbs(got[:64]) == _products(x[:64], y[:64])
 
 
 @pytest.mark.cuda
