@@ -61,6 +61,21 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    for bit its plain version, within 2% relative error of ``x @ w``),
    and one ``optim.compress`` round trip of a 3584 x 14336 gradient;
    each kernel call must add exactly one launch to its counter.
+6. Serving: ``CompiledDesign.serve`` (``repro_torch.serving.Worker``:
+   admit, steal, one bank round a replica and window) on the card, with
+   ``check=True`` (every product against the bigint oracle).  2,048
+   Poisson requests at 0.7x the plan's throughput over 2 replicas on
+   tp3p5_w32, tp5over6_w128 and signed tp3p5_w32 (fused: one
+   ``bank_fold`` launch a round) and on tbl8_w128_strict with
+   ``backend="kernel"`` (one launch a busy instance a round); 512
+   requests at 2.5x on tp3p5_w32, where some must be refused; and a
+   diurnal trace on tp3p5_w32 with an ``Autoscaler`` whose
+   ``recommend`` reads ``autotune.search("tp3p5_w32")``.  Each run must
+   be bit-exact, admit no request past its deadline, and equal the same
+   run on ``device="cpu"`` in every response and every report field but
+   ``wall_s``; it prints requests, rounds, launches a round, latency p50
+   and p99 in bank cycles, goodput, and wall ms a round with the share
+   of it spent in ``Bank.report``.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -879,6 +894,148 @@ def phase_entry_points(device):
     return counts
 
 
+def serve_run(label, spec, reqs, device, scaler=None, **kw):
+    """One serving run on the card, its launches and host time counted,
+    held against the same run on the CPU.  ``scaler``: the arguments of
+    a fresh ``Autoscaler`` for each run.  Returns the card's report and
+    autoscaler."""
+    from repro_torch import designs, serving
+    from repro_torch.core import limbs
+    from repro_torch.core.bank import Bank
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    def autoscaler():
+        return scaler and serving.Autoscaler(**scaler)
+
+    d = designs.generate(spec, device=device)
+    want_rep, want_resp = designs.generate(spec, device="cpu").serve(
+        reqs, autoscaler=autoscaler(), **kw)
+    card_scaler = autoscaler()
+    host = {"report_s": 0.0, "execute_s": 0.0, "wait_s": 0.0,
+            "copy_s": 0.0, "launches_due": 0}
+    execute, report, from_numpy = Bank.execute, Bank.report, \
+        limbs.from_numpy
+
+    def timed_copy(arr, dev):          # the worker's operand copies
+        t0 = time.perf_counter()
+        out = from_numpy(arr, dev)
+        torch.cuda.synchronize()
+        host["copy_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_report(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return report(self, *a, **k)
+        finally:
+            host["report_s"] += time.perf_counter() - t0
+
+    def counted_execute(self, a, b):
+        # the launches this round must make, then its host time (report,
+        # gathers and launch enqueued) and its wait for the device (the
+        # worker's copy back synchronises right after in any case)
+        host["launches_due"] += self.launch_count(a.shape[0])
+        t0 = time.perf_counter()
+        out = execute(self, a, b)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host["execute_s"] += t1 - t0
+        host["wait_s"] += time.perf_counter() - t1
+        return out
+
+    Bank.report, Bank.execute = timed_report, counted_execute
+    limbs.from_numpy = timed_copy
+    try:
+        reset_launch_counts()
+        rep, resp = d.serve(reqs, autoscaler=card_scaler, **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        Bank.report, Bank.execute = report, execute
+        limbs.from_numpy = from_numpy
+    launched = sum(counts.values())
+    check(rep.bit_exact is True and rep.n_mismatch == 0,
+          f"{label}: {rep.n_mismatch} products differ from the oracle")
+    check(rep.slo_violations == 0, f"{label}: {rep.slo_violations} "
+          f"admitted requests missed their deadline")
+    check(resp == want_resp, f"{label}: responses != the CPU run's")
+    got, want = dataclasses.asdict(rep), dataclasses.asdict(want_rep)
+    got.pop("wall_s"), want.pop("wall_s")
+    check(got == want, f"{label}: report != the CPU run's")
+    if d.bank.backend == "fused":
+        check(counts["bank_fold"] == launched == rep.rounds,
+              f"{label}: {counts} launches for {rep.rounds} rounds")
+    else:
+        check(launched == host["launches_due"] > 0,
+              f"{label}: {launched} launches for {host['launches_due']} "
+              f"busy instances over the rounds")
+    wall_ms = rep.wall_s * 1e3
+    share = {k: 100 * host[f"{k}_s"] / rep.wall_s
+             for k in ("report", "execute", "wait", "copy")}
+    print(f"  {label} [{d.bank.backend}, {kw.get('replicas', 1)} "
+          f"replicas]: {rep.n_requests} requests, {rep.n_admitted} served, "
+          f"{rep.n_refused} refused; {rep.rounds} rounds, "
+          f"{launched / max(rep.rounds, 1):.2f} launches a round "
+          f"({launched}); latency p50 {rep.latency_p50} p99 "
+          f"{rep.latency_p99} cycles; goodput {rep.goodput:.4f}/cycle "
+          f"(offered {rep.offered_rate:.4f}); wall {wall_ms:.2f} ms, "
+          f"{wall_ms / max(rep.rounds, 1):.4f} ms a round: "
+          f"{share['report']:.1f}% in Bank.report, "
+          f"{share['execute']:.1f}% in Bank.execute (report included), "
+          f"{share['wait']:.1f}% waiting for the device, "
+          f"{share['copy']:.1f}% copying operands to it, the rest the "
+          f"worker's host work; "
+          f"steals {rep.steals}, max round {rep.max_round_batch}; "
+          f"= CPU run, bit-exact")
+    return rep, card_scaler
+
+
+def phase_serving(device):
+    """CompiledDesign.serve on the card, each run's launches counted."""
+    from repro_torch import autotune, designs, serving
+    print("phase 6: serving (CompiledDesign.serve, check=True)")
+    signed = dataclasses.replace(designs.get("tp3p5_w32"), signed=True)
+    kernel = dataclasses.replace(designs.get("tbl8_w128_strict"),
+                                 backend="kernel")
+    runs = (("tp3p5_w32", "tp3p5_w32"),
+            ("tp5over6_w128", "tp5over6_w128"),
+            ("signed tp3p5_w32", signed),
+            ("tbl8_w128_strict", kernel))
+
+    def requests(spec, n, load, seed, arrivals=serving.poisson_arrivals):
+        d = designs.generate(spec, device="cpu")
+        tp = float(d.plan.throughput)
+        return serving.synthesize(arrivals(n, load * tp, seed=seed),
+                                  d.spec.bits_a, d.spec.bits_b,
+                                  budget=max(8, int(32 / tp)),
+                                  seed=seed + 1)
+
+    for k, (label, spec) in enumerate(runs):
+        serve_run(label, spec, requests(spec, 2048, 0.7, SEED + 10 + k),
+                  device, replicas=2, check=True)
+    over, _ = serve_run("tp3p5_w32 overload", "tp3p5_w32",
+                        requests("tp3p5_w32", 512, 2.5, SEED + 20), device,
+                        check=True)
+    check(over.n_refused > 0, "overload: no request was refused")
+    d = designs.generate("tp3p5_w32", device="cpu")
+    reqs = requests("tp3p5_w32", 2048, 1.2, SEED + 30,
+                    arrivals=serving.diurnal_arrivals)
+    rep, scaler = serve_run(
+        "tp3p5_w32 diurnal", "tp3p5_w32", reqs, device,
+        scaler=dict(provisioned_tp=d.plan.throughput, max_replicas=4,
+                    ema=0.6, patience=2), check=True)
+    check(max(n for _, n in rep.replica_timeline) > 1,
+          "diurnal: the autoscaler never scaled up")
+    front = autotune.search("tp3p5_w32", use_cache=False)
+    rec = scaler.recommend(front)
+    check(rec is None or float(rec.spec.throughput) >= scaler.rate,
+          "recommend picked a design below the sustained rate")
+    print(f"  autoscaler: replicas over time {rep.replica_timeline}; "
+          f"{scaler.describe()}; recommends "
+          f"{rec.describe() if rec else 'keeping tp3p5_w32'} "
+          f"(front of {len(front)} points)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -891,6 +1048,7 @@ def main():
     fused_counts, kernel_counts = phase_main_path(device)
     phase_rounds(device, rounds)
     entry_counts = phase_entry_points(device)
+    phase_serving(device)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

@@ -9,7 +9,12 @@ card every bank round goes through hand-written CUDA kernels
 versions.  :mod:`repro_torch.quant` (int8 matmul) and
 :mod:`repro_torch.optim` (int8 gradient compression) follow the same
 rule: CUDA tensors launch the kernels, CPU tensors take the plain path.
+:mod:`repro_torch.verify` is the plan-time gate ``generate()`` runs,
+:mod:`repro_torch.autotune` the Pareto-front search over decompositions,
+and :mod:`repro_torch.serving` the online serving loop behind
+``CompiledDesign.serve`` (imported on demand: importing it registers the
+``slo_edf`` scheduler).
 """
-from . import core, designs, kernels, optim, quant
+from . import core, designs, kernels, optim, quant, verify
 
-__all__ = ["core", "designs", "kernels", "optim", "quant"]
+__all__ = ["core", "designs", "kernels", "optim", "quant", "verify"]

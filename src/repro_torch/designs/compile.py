@@ -9,10 +9,12 @@ resulting ``CompiledDesign`` owns the chosen ``planner.Plan``, an
 executable ``Bank`` on one device, and the area/latency/fmax/power
 figures the paper's tables report.
 
-Not in this port yet: sharded replicas (``spec.replicas > 1``),
-``serve()``, and the reference's static plan gates
-(``verify.assert_plan`` / ``assert_plan_dataflow``); the port does not
-run those gates.
+Every plan passes the static gate ``verify.assert_plan`` before a bank
+is built around it, as in the reference; the reference's jaxpr-level
+``assert_plan_dataflow`` checks Pallas launches and has no counterpart
+here.  ``CompiledDesign.serve`` runs the online serving loop
+(:mod:`repro_torch.serving`).  Not in this port yet: sharded replicas
+(``spec.replicas > 1``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core import area_model, planner, power_model, timing_model
 from repro_torch.core.bank import Bank, BankReport, StreamingScheduler
 from repro_torch.core.mcim import MCIMConfig
 from repro_torch.device import resolve_device
+from repro_torch import verify
 
 from .spec import DesignSpec, DesignError, TimingError, LatencyError
 
@@ -133,6 +136,30 @@ class CompiledDesign:
         trace = tuple(int(c) for c in arrivals)
         sched = StreamingScheduler(arrivals=trace)
         return self.bank.report(len(trace), scheduler=sched)
+
+    def serve(self, requests, *, replicas: int = 1,
+              round_cycles: int | None = None, steal: bool = True,
+              autoscaler=None, check: bool = False):
+        """Serve a request stream *online* through this design.
+
+        Where :meth:`replay` scores a finished arrival trace, ``serve``
+        runs the full event loop of :class:`repro_torch.serving.Worker`:
+        SLO admission control, EDF dispatch in bank rounds (one
+        ``bank_fold`` launch per round on the fused backend), work
+        stealing across ``replicas`` independent bank replicas on this
+        design's device, and optional autoscaling (pass a
+        ``repro_torch.serving.Autoscaler``).  ``check=True`` verifies
+        every response against the Python-bigint oracle.
+
+        Returns ``(report, responses)``: the
+        :class:`~repro_torch.serving.ServingReport` and the per-request
+        ``{rid: Response}`` outcomes.
+        """
+        from repro_torch.serving import Worker
+        worker = Worker(self, replicas=replicas, round_cycles=round_cycles,
+                        steal=steal, autoscaler=autoscaler, check=check)
+        report = worker.run(requests)
+        return report, worker.responses
 
     # --------------------------------------------------------- properties
     @property
@@ -276,6 +303,10 @@ def _plan_with_timing(spec: DesignSpec):
         plan = dataclasses.replace(plan, configs=tuple(
             (count, dataclasses.replace(cfg, signed=True))
             for count, cfg in plan.configs))
+    # static verification gate: a plan the interval/contract analyzers
+    # cannot prove overflow-safe and schedule-conformant never compiles
+    verify.assert_plan(spec.bits_a, spec.bits_b, plan.configs,
+                       plan.throughput)
     return plan, fallback
 
 
@@ -336,6 +367,10 @@ def compile_plan(spec: DesignSpec, configs, device=None) -> CompiledDesign:
         if lat > spec.latency_budget:
             raise LatencyError(f"explicit configs need {lat} cycles, "
                                f"over the budget of {spec.latency_budget}")
+    # same static gate generate() applies: explicit instance lists must
+    # prove safe before a bank is built around them
+    verify.assert_plan(spec.bits_a, spec.bits_b, plan.configs,
+                       plan.throughput)
     backend = _resolve_backend(spec, device)
     bank = Bank(plan, spec.bits_a, spec.bits_b, backend=backend,
                 scheduler=spec.scheduler, device=device)

@@ -32,7 +32,7 @@ def test_no_jax_or_reference_imports_in_the_port():
     for sub in ("core", "core/bank", "designs", "kernels/bank_fold",
                 "kernels/mcim_fold", "kernels/prefix_adder",
                 "kernels/karatsuba_ppm", "kernels/int8_matmul", "quant",
-                "optim"):
+                "optim", "verify", "autotune", "serving"):
         assert any(f.parent == port / sub for f in files), sub
     bad =[f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_roots(f)
@@ -66,6 +66,14 @@ def test_port_imports_with_jax_and_reference_blocked():
             "g = {'w': x}\n"
             "q, s, e = compress.compress_grads(g, compress.init_error(g))\n"
             "assert torch.equal(compress.decompress_grads(q, s, g)['w'], x)\n"
+            "from repro_torch import autotune, serving, verify\n"
+            "assert verify.verify_design(d) == ()\n"
+            "f = autotune.search('tp3p5_w32', use_cache=False)\n"
+            "assert f.best_meeting(3.5) is not None\n"
+            "reqs = serving.synthesize(serving.poisson_arrivals(16, 2.0), "
+            "32, 32, budget=64)\n"
+            "rep, _ = d.serve(reqs, replicas=2, check=True)\n"
+            "assert rep.bit_exact is True\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
