@@ -76,6 +76,26 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    ``wall_s``; it prints requests, rounds, launches a round, latency p50
    and p99 in bank cycles, goodput, and wall ms a round with the share
    of it spent in ``Bank.report``.
+7. Replication and the determinism path.  (a) ``tp3p5_w32`` and
+   ``tp5over6_w128`` with ``replicas=2`` through ``generate(spec,
+   devices=...)``.mul at B = 1,048,576, fused and ``kernel``, over
+   ``[cuda:0, cuda:0]`` (and two cards when there are two): bit-exact
+   against phase 4's single bank and the bigint oracle on 65,536 sampled
+   rows, launches = 2 x one replica's, ``report``/``throughput``/
+   ``area``/``peak_power_mw`` equal to the CPU's, and ``replicas`` one
+   past the card count refused; the sharded round is timed beside the
+   single one.  (b) A world of 2 processes (``gloo`` on one card, whose
+   ranks share it; ``nccl`` with a card a rank) runs ``exact_psum`` and
+   ``compressed_psum`` on (3584, 14336) float32 gradients on the card:
+   the exact sum the same bits with the ranks' inputs swapped and equal
+   to ``exact_sum`` over the stacked inputs (on the card, and on the
+   CPU for sampled rows), the compressed mean and error equal bit for
+   bit to the same world's run on CPU copies, within 5% of the float64
+   mean.  (c) ``SyntheticLM`` at gemma2-9b's ``train_4k`` batch (256 x
+   4,097 Philox offsets, vocab 256,000), ``PatternLM`` and
+   ``BinTokenFile`` (a corpus written under ``build/``) on the card,
+   each equal to the same call with ``device="cpu"``; the Random123
+   known vector on the card; the Philox draw timed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -83,7 +103,9 @@ checkout, it exits non-zero and prints no result.
 """
 import ctypes
 import dataclasses
+import datetime
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -112,6 +134,15 @@ SLICE2_KERNELS = {"prefix_adder", "karatsuba_ppm", "int8_matmul"}
 COLD_BYTES = 100e6                 # twice the H100's 50 MB L2
 ALL_KERNELS = {"bank_fold", "mcim_fold_fb", "mcim_fold_ff",
                "mcim_fold_karatsuba"} | SLICE2_KERNELS
+ROOT = pathlib.Path(__file__).resolve().parent
+REPLICAS = 2
+ORACLE_SAMPLE = 65_536             # rows of a replicated round held to
+#                                    the bigint oracle
+GRAD_ROWS = GEMMA_K                # a (3584, 14336) float32 gradient
+WORLD = 2
+WORLD_LIMIT_S = 600
+#: gemma2-9b train_4k: vocab, sequence, global batch
+TRAIN_4K = (256_000, 4096, 256)
 
 
 def check(cond, msg):
@@ -1036,6 +1067,231 @@ def phase_serving(device):
           f"(front of {len(front)} points)")
 
 
+def phase_replicas(device):
+    """Replicated banks through ``generate(spec, devices=...)``, each
+    round's launches counted, against the single bank and the CPU."""
+    from repro_torch import designs
+    from repro_torch.core import limbs as L
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    print(f"phase 7a: {REPLICAS} replicated banks x B={B_TIME}")
+    rng = np.random.default_rng(SEED + 40)
+    n_cards = torch.cuda.device_count()
+    layouts = [("one card", [device] * REPLICAS)]
+    if n_cards >= REPLICAS:
+        layouts.append(("distinct cards", [torch.device("cuda", i)
+                                           for i in range(REPLICAS)]))
+    sample = torch.from_numpy(np.sort(rng.choice(
+        B_TIME, ORACLE_SAMPLE, replace=False))).to(device)
+    for name in ("tp3p5_w32", "tp5over6_w128"):
+        base = designs.get(name)
+        single = designs.generate(name)
+        a, b = operands(rng, (B_TIME,), base.bits_a, device)
+        want = single.mul(a, b)
+        sa, sb = a[sample], b[sample]
+        expect = oracle(sa, sb)
+        check(L.batch_from_limbs(want[sample]) == expect,
+              f"{name}: single bank != bigint oracle")
+        single_ms = cuda_ms(lambda: single.mul(a, b), iters=2, warmup=1)
+        for backend in ("fused", "kernel"):
+            spec = dataclasses.replace(base, replicas=REPLICAS,
+                                       backend=backend)
+            on_cpu = designs.generate(spec, device="cpu")
+            for label, devs in layouts:
+                d = designs.generate(spec, devices=devs)
+                reset_launch_counts()
+                out = d.mul(a, b)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                due = REPLICAS * d.bank.launch_count(B_TIME // REPLICAS)
+                check(sum(counts.values()) == due > 0,
+                      f"{name} {backend} x{REPLICAS} ({label}): "
+                      f"{counts} launches, {due} due")
+                if backend == "fused":
+                    check(counts["bank_fold"] == REPLICAS,
+                          f"{name}: {counts['bank_fold']} bank_fold "
+                          f"launches for {REPLICAS} replicas")
+                check(out.device == a.device and torch.equal(out, want),
+                      f"{name} {backend} ({label}): sharded != single bank")
+                check(L.batch_from_limbs(out[sample]) == expect,
+                      f"{name} {backend} ({label}): != bigint oracle")
+                for prop in ("throughput", "area", "peak_power_mw"):
+                    check(getattr(d, prop) == getattr(on_cpu, prop),
+                          f"{name}: {prop} != the CPU's")
+                check(dataclasses.asdict(d.report(B_TIME))
+                      == dataclasses.asdict(on_cpu.report(B_TIME)),
+                      f"{name}: report != the CPU's")
+                ms = cuda_ms(lambda: d.mul(a, b), iters=2, warmup=1)
+                print(f"  {name} {backend} x{REPLICAS} on {label} "
+                      f"{[str(x) for x in d.devices]}: = single bank = "
+                      f"oracle ({ORACLE_SAMPLE} rows); launches {counts} "
+                      f"({due} = {REPLICAS} x {due // REPLICAS}); "
+                      f"throughput {d.throughput} = {REPLICAS} x "
+                      f"{single.throughput}; sharded round {ms:.4f} ms, "
+                      f"single fused round {single_ms:.4f} ms")
+        try:
+            designs.generate(dataclasses.replace(base,
+                                                 replicas=n_cards + 1))
+        except designs.DesignError as err:
+            print(f"  {name} x{n_cards + 1}: refused ({err})")
+        else:
+            raise RuntimeError(f"{name}: {n_cards + 1} replicas on "
+                               f"{n_cards} cards not refused")
+
+
+def collective_rank(rank, world, init, out_path):
+    """One rank of phase 7b's world; rank 0 writes the results."""
+    import torch.distributed as dist
+    from repro_torch.exact import exact_psum, exact_sum
+    from repro_torch.optim.compress import compressed_psum, init_error
+    n_cards = torch.cuda.device_count()
+    dev = torch.device("cuda", rank % n_cards)
+    torch.cuda.set_device(dev)
+    # NCCL refuses two ranks on one card: there both ranks' CUDA tensors
+    # go through gloo, which stages them through host memory
+    backend = "cpu:gloo,cuda:nccl" if n_cards >= world else "gloo"
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    xs = [torch.randn((GRAD_ROWS, GEMMA_N), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          SEED + 50 + r)) for r in range(world)]
+    x, other = xs[rank], xs[(rank + 1) % world]
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    exact, exact_ms = timed(exact_psum, x)
+    swapped, _ = timed(exact_psum, other)
+    check(exact.device == dev and torch.equal(
+        exact.view(torch.int32), swapped.view(torch.int32)),
+        "exact_psum: the bits depend on the ranks' order")
+    grads = {"mlp_up": x}
+    (avg, err), comp_ms = timed(compressed_psum, grads, init_error(grads))
+    cpu_grads = {"mlp_up": x.cpu()}
+    (avg_c, err_c), comp_cpu_ms = timed(compressed_psum, cpu_grads,
+                                        init_error(cpu_grads))
+    check(avg["mlp_up"].device == dev, "compressed_psum left the card")
+    for got, want, what in ((avg, avg_c, "mean"), (err, err_c, "error")):
+        check(torch.equal(got["mlp_up"].cpu().view(torch.int32),
+                          want["mlp_up"].view(torch.int32)),
+              f"compressed_psum {what}: card != CPU")
+    dist.barrier()
+    if rank == 0:
+        stacked_rows = 512           # exact_sum of the stacked inputs in
+        for r0 in range(0, GRAD_ROWS, stacked_rows):   # row chunks
+            want = exact_sum(torch.stack([xs[r][r0:r0 + stacked_rows]
+                                          for r in range(world)]), axis=0)
+            check(torch.equal(exact[r0:r0 + stacked_rows].view(torch.int32),
+                              want.view(torch.int32)),
+                  f"exact_psum != exact_sum (rows {r0}+)")
+        rows = torch.from_numpy(np.random.default_rng(SEED + 51).choice(
+            GRAD_ROWS, min(256, GRAD_ROWS), replace=False)).to(dev)
+        on_cpu = exact_sum(torch.stack([xs[r][rows].cpu()
+                                        for r in range(world)]), axis=0)
+        check(torch.equal(exact[rows].cpu().view(torch.int32),
+                          on_cpu.view(torch.int32)),
+              "exact_psum != the CPU's exact_sum (sampled rows)")
+        mean = sum(xs[r].double() for r in range(world)) / world
+        rel = ((avg["mlp_up"].double() - mean).norm() / mean.norm()).item()
+        check(rel < 0.05, f"compressed_psum: relative error {rel}")
+        check(err["mlp_up"].abs().max().item() > 0,
+              "compressed_psum: no residual captured")
+        with open(out_path, "w") as f:
+            json.dump({"backend": backend, "exact_ms": exact_ms,
+                       "compressed_ms": comp_ms,
+                       "compressed_cpu_ms": comp_cpu_ms, "rel": rel}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_collectives():
+    """exact_psum and compressed_psum in a spawned world of WORLD ranks."""
+    import torch.multiprocessing as mp
+    print(f"phase 7b: collectives, {WORLD} ranks x ({GRAD_ROWS}, {GEMMA_N}) "
+          f"float32 on the card")
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    store, out = work / f"store.{os.getpid()}", work / f"world.{os.getpid()}"
+    for f in (store, out):
+        f.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(collective_rank, args=(WORLD, f"file://{store}", str(out)),
+                   nprocs=WORLD, join=False)
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > WORLD_LIMIT_S:
+                raise RuntimeError(f"phase 7b: the world passed "
+                                   f"{WORLD_LIMIT_S} s")
+        wall_s = time.perf_counter() - t0
+        res = json.loads(out.read_text())
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        for f in (store, out):
+            f.unlink(missing_ok=True)
+    print(f"  backend {res['backend']} (tensors on the card); exact_psum "
+          f"= swapped ranks = exact_sum (card, all rows; CPU, 256 rows): "
+          f"{res['exact_ms']:.2f} ms; compressed_psum = CPU run bit for "
+          f"bit, relative error {res['rel']:.5f} vs the float64 mean: "
+          f"{res['compressed_ms']:.2f} ms (CPU copies "
+          f"{res['compressed_cpu_ms']:.2f} ms); world wall {wall_s:.1f} s")
+
+
+def phase_determinism(device):
+    """Philox and the data sources on the card against the CPU."""
+    from repro_torch import data, rng
+    vocab, seq, batch = TRAIN_4K
+    print(f"phase 7c: determinism path, {batch} x {seq + 1} Philox offsets, "
+          f"vocab {vocab}")
+    known = rng.philox4x32(torch.zeros((1, 4), dtype=torch.int64,
+                                       device=device),
+                           torch.zeros((1, 2), dtype=torch.int64,
+                                       device=device))
+    check(known[0].tolist() == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C,
+                                0x9B00DBD8], "Philox known vector")
+    corpus = ROOT / "build" / "chip_smoke" / f"corpus.{os.getpid()}.bin"
+    corpus.parent.mkdir(parents=True, exist_ok=True)
+    np.random.default_rng(SEED + 60).integers(
+        0, 60_000, 2_000_000, dtype=np.uint16).tofile(corpus)
+    try:
+        for source in ("synthetic", "pattern", "binfile"):
+            cfg = data.DataConfig(vocab_size=vocab, seq_len=seq,
+                                  global_batch=batch, seed=SEED,
+                                  source=source, path=str(corpus))
+            t0 = time.perf_counter()
+            got = data.make_source(cfg).batch_at(3)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = data.make_source(cfg, device="cpu").batch_at(3)
+            cpu_s = time.perf_counter() - t0
+            for k in want:
+                check(got[k].dtype == want[k].dtype
+                      and np.array_equal(got[k], want[k]),
+                      f"{source} {k}: card != CPU")
+            on_card = data.device_batch(got)
+            check(all(v.device.type == device.type
+                      for v in on_card.values()),
+                  "device_batch left the card")
+            print(f"  {source} batch_at(3) {got['tokens'].shape}: = CPU; "
+                  f"{card_s * 1e3:.1f} ms (card) {cpu_s * 1e3:.1f} ms (CPU)")
+    finally:
+        corpus.unlink(missing_ok=True)
+    offs = torch.arange(3 * batch * (seq + 1), 4 * batch * (seq + 1),
+                        device=device)
+    draw_ms = cuda_ms(lambda: rng.random_tokens(SEED, 1, offs, vocab),
+                      iters=5, warmup=1)
+    print(f"  Philox draw (random_tokens, {offs.numel()} offsets, 10 rounds "
+          f"x 2 mul32x32_64 a counter): {draw_ms:.4f} ms (CUDA events); "
+          f"known vector ok")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1049,6 +1305,9 @@ def main():
     phase_rounds(device, rounds)
     entry_counts = phase_entry_points(device)
     phase_serving(device)
+    phase_replicas(device)
+    phase_collectives()
+    phase_determinism(device)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

@@ -13,8 +13,13 @@ rule: CUDA tensors launch the kernels, CPU tensors take the plain path.
 :mod:`repro_torch.autotune` the Pareto-front search over decompositions,
 and :mod:`repro_torch.serving` the online serving loop behind
 ``CompiledDesign.serve`` (imported on demand: importing it registers the
-``slo_edf`` scheduler).
+``slo_edf`` scheduler).  The determinism path: :mod:`repro_torch.exact`
+(fixed-point sums, ``exact_psum`` across a process group),
+:mod:`repro_torch.rng` (Philox on ``core.mul32x32_64``) and
+:mod:`repro_torch.data` (deterministic token sources), each running on
+the device of its inputs or the one its caller names.
 """
-from . import core, designs, kernels, optim, quant, verify
+from . import core, data, designs, exact, kernels, optim, quant, rng, verify
 
-__all__ = ["core", "designs", "kernels", "optim", "quant", "verify"]
+__all__ = ["core", "data", "designs", "exact", "kernels", "optim", "quant",
+           "rng", "verify"]

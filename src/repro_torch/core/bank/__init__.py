@@ -6,6 +6,7 @@
                        (arch, capability): core, kernel or fused
   :mod:`.engine`    -- the ``Bank`` wiring a Plan, a scheduler and
                        backends into bit-exact, cycle-accounted execution
+  :mod:`.sharded`   -- N replicated banks over a list of devices
 """
 from .schedule import (Scheduler, RoundRobinScheduler, GreedyScheduler,
                        StreamingScheduler, SCHEDULERS, register_scheduler,
@@ -17,6 +18,7 @@ from .backends import (InstanceBackend, CAPABILITIES,
                        register_backend, get_backend, registered_backends,
                        cached_mul)
 from .engine import Bank, BankReport, InstanceReport
+from .sharded import sharded_execute, sharded_report
 
 __all__ = [
     "Scheduler", "RoundRobinScheduler", "GreedyScheduler",
@@ -27,4 +29,5 @@ __all__ = [
     "InstanceBackend", "CAPABILITIES", "register_backend",
     "get_backend", "registered_backends", "cached_mul",
     "Bank", "BankReport", "InstanceReport",
+    "sharded_execute", "sharded_report",
 ]

@@ -7,14 +7,16 @@ cannot meet ``spec.clock_ns`` falls back to pipelineable designs; a
 latency budget rejects designs too deep at the target), and the
 resulting ``CompiledDesign`` owns the chosen ``planner.Plan``, an
 executable ``Bank`` on one device, and the area/latency/fmax/power
-figures the paper's tables report.
+figures the paper's tables report.  A spec with ``replicas > 1``
+replicates the bank over a list of devices (the reference's mesh axis;
+:mod:`repro_torch.core.bank.sharded`), and its throughput, area and
+peak power count every replica.
 
 Every plan passes the static gate ``verify.assert_plan`` before a bank
 is built around it, as in the reference; the reference's jaxpr-level
 ``assert_plan_dataflow`` checks Pallas launches and has no counterpart
 here.  ``CompiledDesign.serve`` runs the online serving loop
-(:mod:`repro_torch.serving`).  Not in this port yet: sharded replicas
-(``spec.replicas > 1``).
+(:mod:`repro_torch.serving`).
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import torch
 
 from repro_torch.core import limbs as L
 from repro_torch.core import area_model, planner, power_model, timing_model
-from repro_torch.core.bank import Bank, BankReport, StreamingScheduler
+from repro_torch.core.bank import (Bank, BankReport, StreamingScheduler,
+                                   sharded_execute)
 from repro_torch.core.mcim import MCIMConfig
 from repro_torch.device import resolve_device
 from repro_torch import verify
@@ -72,14 +75,16 @@ class CompiledDesign:
     backend and device resolved), the paper's area / latency / fmax /
     power figures as properties, and provenance (``spec`` / ``to_json``).
     ``mul(a, b)`` multiplies int32 limb tensors on the bank's device --
-    or two Python ints -- bit-exactly.
+    or two Python ints -- bit-exactly.  With ``spec.replicas > 1``,
+    ``devices`` holds one device a replica.
     """
 
     def __init__(self, spec: DesignSpec, plan: planner.Plan, bank: Bank,
-                 timing_fallback: bool = False):
+                 devices=None, timing_fallback: bool = False):
         self.spec = spec
         self.plan = plan
         self.bank = bank
+        self.devices = devices
         #: True when the relaxed plan missed spec.clock_ns and planning
         #: was redone with strict (pipelineable-only) candidates.
         self.timing_fallback = timing_fallback
@@ -92,12 +97,22 @@ class CompiledDesign:
 
     # ------------------------------------------------------------ execute
     def mul(self, a, b):
-        """Multiply: int32 limb tensors (B, LA) x (B, LB) -> (B, LA+LB) on
-        the bank's device, or two Python ints -> int (two's complement
-        when the spec is signed).  Operands on another device raise."""
+        """Multiply: int32 limb tensors (B, LA) x (B, LB) -> (B, LA+LB), or
+        two Python ints -> int (two's complement when the spec is signed).
+
+        Routes limb batches to the replicated sharded engine when the
+        spec asked for replicas (the products come back on the operands'
+        device), else to the single bank (operands on another device
+        than the bank's raise).
+        """
         if isinstance(a, (int, np.integer)) and isinstance(b, (int,
                                                                np.integer)):
             return self._mul_ints(int(a), int(b))
+        if self.devices is not None:
+            return sharded_execute(self.plan, a, b, self.devices,
+                                   backend=self.bank.backend,
+                                   scheduler=self.spec.scheduler,
+                                   axis=self.spec.mesh_axis)
         return self.bank.execute(a, b)
 
     def _mul_ints(self, a: int, b: int) -> int:
@@ -123,8 +138,13 @@ class CompiledDesign:
 
     # ------------------------------------------------------------ reports
     def report(self, batch: int) -> BankReport:
-        """Cycle accounting for one batch, with the design's modeled
-        energy/op and peak power attached."""
+        """Cycle accounting for one batch (per replica when sharded),
+        with the design's modeled energy/op and peak power attached."""
+        if self.spec.replicas > 1:
+            if batch % self.spec.replicas:
+                raise ValueError(f"batch {batch} does not divide over "
+                                 f"{self.spec.replicas} replicas")
+            batch //= self.spec.replicas
         return dataclasses.replace(self.bank.report(batch),
                                    energy_per_op_pj=self.energy_per_op_pj,
                                    peak_power_mw=self.peak_power_mw)
@@ -164,13 +184,13 @@ class CompiledDesign:
     # --------------------------------------------------------- properties
     @property
     def throughput(self):
-        """Aggregate multiplications/cycle."""
-        return self.plan.throughput
+        """Aggregate multiplications/cycle (replicas x per-bank TP)."""
+        return self.plan.throughput * self.spec.replicas
 
     @property
     def area(self) -> float:
-        """Modeled silicon area (um^2), including the synthesis stress of
-        meeting ``spec.clock_ns`` when set."""
+        """Modeled silicon area (um^2), all replicas, including the
+        synthesis stress of meeting ``spec.clock_ns`` when set."""
         bits = _timing_bits(self.spec)
         total = 0.0
         for count, cfg in self.plan.configs:
@@ -178,7 +198,7 @@ class CompiledDesign:
             if self.spec.clock_ns is not None:
                 a *= timing_model.stress(cfg.arch, bits, self.spec.clock_ns)
             total += count * a
-        return total
+        return total * self.spec.replicas
 
     @property
     def latency_cycles(self) -> int:
@@ -212,12 +232,12 @@ class CompiledDesign:
 
     @property
     def peak_power_mw(self) -> float:
-        """Modeled peak power (mW) at the spec's clock (or the slowest
-        instance's natural period when relaxed)."""
+        """Modeled peak power (mW, all replicas) at the spec's clock (or
+        the slowest instance's natural period when relaxed)."""
         period = 1.0 / self.fmax_estimate
         return power_model.plan_peak_power_mw(
             self.spec.bits_a, self.spec.bits_b, self.plan.configs,
-            clock_ns=period, stress=self._stress)
+            clock_ns=period, stress=self._stress) * self.spec.replicas
 
     def describe(self) -> str:
         extra = " timing_fallback" if self.timing_fallback else ""
@@ -254,11 +274,36 @@ def _achieved_throughput(plan: planner.Plan):
     return sum(Fraction(count, cfg.ct) for count, cfg in plan.configs)
 
 
-def _check_replicas(spec: DesignSpec) -> None:
-    if spec.replicas > 1:
-        raise NotImplementedError(
-            "spec.replicas > 1 needs sharded banks, which the port does not "
-            "have yet (queued as the next slice in ROADMAP.md)")
+def _resolve_devices(spec: DesignSpec, device: torch.device, devices):
+    """One device a replica, or None for a single bank: ``devices`` when
+    given, else the first ``spec.replicas`` CUDA cards (``replicas`` x
+    the CPU when ``device`` is the CPU)."""
+    if spec.replicas == 1:
+        return None
+    if devices is not None:
+        if len(devices) != spec.replicas:
+            raise DesignError(
+                f"mesh axis {spec.mesh_axis!r} has {len(devices)} devices, "
+                f"spec wants {spec.replicas} replicas")
+        return tuple(resolve_device(d) for d in devices)
+    if device.type == "cpu":
+        return (device,) * spec.replicas
+    available = torch.cuda.device_count()
+    if available < spec.replicas:
+        raise DesignError(
+            f"{spec.replicas} replicas need {spec.replicas} devices, "
+            f"only {available} available (pass explicit devices or "
+            f"lower spec.replicas)")
+    return tuple(torch.device("cuda", i) for i in range(spec.replicas))
+
+
+def _resolve_placement(spec: DesignSpec, device, devices):
+    """(bank device, replica devices): the bank lies on ``device``, or on
+    the first of ``devices`` when only they are given."""
+    if device is None and devices:
+        device = devices[0]
+    device = resolve_device(device)
+    return device, _resolve_devices(spec, device, devices)
 
 
 def _plan_with_timing(spec: DesignSpec):
@@ -310,32 +355,36 @@ def _plan_with_timing(spec: DesignSpec):
     return plan, fallback
 
 
-def generate(spec: DesignSpec, device=None) -> CompiledDesign:
+def generate(spec: DesignSpec, device=None, devices=None) -> CompiledDesign:
     """Compile ``spec`` (or a registry name) into a :class:`CompiledDesign`
     whose bank runs on ``device``: ``cuda`` by default, raising when no
     CUDA device is present; pass ``device="cpu"`` for the plain path.
 
     Planning filtered by the timing model (clock + latency), then
-    scheduler/backend resolution and bank construction.
+    scheduler/backend resolution, bank construction and, for
+    ``spec.replicas > 1``, replication over ``devices`` (one a replica;
+    by default the first ``replicas`` cards, or the CPU repeated when
+    ``device="cpu"``).
     """
     if isinstance(spec, str):
         from .registry import get
         spec = get(spec)
-    _check_replicas(spec)
-    device = resolve_device(device)
+    device, devices = _resolve_placement(spec, device, devices)
     plan, fallback = _plan_with_timing(spec)
     backend = _resolve_backend(spec, device)
     bank = Bank(plan, spec.bits_a, spec.bits_b, backend=backend,
                 scheduler=spec.scheduler, device=device)
-    return CompiledDesign(spec, plan, bank, timing_fallback=fallback)
+    return CompiledDesign(spec, plan, bank, devices=devices,
+                          timing_fallback=fallback)
 
 
-def compile_plan(spec: DesignSpec, configs, device=None) -> CompiledDesign:
+def compile_plan(spec: DesignSpec, configs, device=None,
+                 devices=None) -> CompiledDesign:
     """Compile ``spec`` with an EXPLICIT instance list ``[(count,
     MCIMConfig), ...]``, bypassing the planner's pick; it must sum to
-    exactly ``spec.throughput`` and meet the spec's clock/latency."""
-    _check_replicas(spec)
-    device = resolve_device(device)
+    exactly ``spec.throughput`` and meet the spec's clock/latency.
+    ``device`` and ``devices`` as in :func:`generate`."""
+    device, devices = _resolve_placement(spec, device, devices)
     configs = tuple((int(count), cfg) for count, cfg in configs)
     if spec.signed:
         configs = tuple((count, dataclasses.replace(cfg, signed=True))
@@ -374,4 +423,4 @@ def compile_plan(spec: DesignSpec, configs, device=None) -> CompiledDesign:
     backend = _resolve_backend(spec, device)
     bank = Bank(plan, spec.bits_a, spec.bits_b, backend=backend,
                 scheduler=spec.scheduler, device=device)
-    return CompiledDesign(spec, plan, bank)
+    return CompiledDesign(spec, plan, bank, devices=devices)

@@ -243,10 +243,151 @@ def test_no_device_without_cuda_raises(monkeypatch):
         TBank(TP.plan_throughput(32, 32, 2), 32, 32)
 
 
-def test_replicas_not_in_this_slice():
+# ------------------------------------------------------------- replicas
+
+REPLICATED = ("tp3p5_w32", "tp5over6_w128")
+
+REFERENCE_MESH = r"""
+import os, sys, json, dataclasses
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np
+import jax
+import repro.verify
+from repro.designs import compile as RC, registry as RR, DesignError
+
+# the dataflow gate some jax versions cannot complete (module docstring)
+repro.verify.assert_plan_dataflow = lambda *a, **k: None
+names, out = json.loads(sys.argv[1]), sys.argv[2]
+ops = dict(np.load(out + ".in.npz"))
+mesh2 = jax.sharding.Mesh(np.asarray(jax.devices()[:2]), ("data",))
+mesh4 = jax.sharding.Mesh(np.asarray(jax.devices()), ("data",))
+res, errors = {}, {}
+for name in names:
+    for backend in ("core", "fused", "kernel"):
+        spec = dataclasses.replace(RR.get(name), replicas=2, backend=backend)
+        d = RC.generate(spec, mesh=mesh2)
+        res[f"{name}-{backend}"] = np.asarray(
+            d.mul(ops[f"{name}_a"], ops[f"{name}_b"]))
+spec = dataclasses.replace(RR.get("tp3p5_w32"), replicas=2)
+for label, fn in (("mesh_size", lambda: RC.generate(spec, mesh=mesh4)),
+                  ("too_many", lambda: RC.generate(
+                      dataclasses.replace(spec, replicas=5)))):
+    try:
+        fn()
+    except DesignError as e:
+        errors[label] = str(e)
+np.savez(out, **res)
+with open(out + ".json", "w") as f:
+    json.dump(errors, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_mesh(tmp_path_factory):
+    """The reference's replicated designs on a 2-device placeholder mesh
+    (a subprocess: the device count is set before jax is imported)."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    out = str(tmp_path_factory.mktemp("replicas") / "ref")
+    np.savez(out + ".in.npz", **{
+        f"{n}_{x}": _operands(5, 12, RR.get(n).bits_a)[i]
+        for n in REPLICATED for i, x in enumerate("ab")})
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    proc = subprocess.run(
+        [sys.executable, "-c", REFERENCE_MESH, json.dumps(REPLICATED), out],
+        env=dict(os.environ, PYTHONPATH=str(src), JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(out + ".json") as f:
+        return dict(np.load(out + ".npz")), json.load(f)
+
+
+@pytest.mark.parametrize("backend", ("core", "fused", "kernel"))
+@pytest.mark.parametrize("name", REPLICATED)
+def test_replicated_mul_matches_reference_mesh(name, backend,
+                                               reference_mesh):
+    a, b = _operands(5, 12, RR.get(name).bits_a)
+    spec = dataclasses.replace(TD.get(name), replicas=2, backend=backend)
+    design = TD.generate(spec, devices=["cpu", "cpu"])
+    assert design.devices == (torch.device("cpu"),) * 2
+    assert design.bank.backend == backend
+    got = design.mul(_cpu(a), _cpu(b))
+    np.testing.assert_array_equal(
+        got.numpy(), reference_mesh[0][f"{name}-{backend}"].astype(np.int32))
+    assert TL.batch_from_limbs(got) == _oracle(a, b)
+    assert torch.equal(got, TD.generate(dataclasses.replace(
+        spec, replicas=1), device="cpu").mul(_cpu(a), _cpu(b)))
+
+
+@pytest.mark.parametrize("name", REPLICATED)
+def test_replicated_figures_and_report_match_reference(name, ref_plan):
+    ref_spec = dataclasses.replace(RR.get(name), replicas=2)
+    rplan = ref_plan(ref_spec)
+    ref = RC.CompiledDesign(ref_spec, rplan,
+                            RBank(rplan, ref_spec.bits_a, ref_spec.bits_b,
+                                  scheduler=ref_spec.scheduler))
+    spec = dataclasses.replace(TD.get(name), replicas=2)
+    design = TD.generate(spec, devices=["cpu", "cpu"])
+    single = TD.generate(name, device="cpu")
+    for prop in ("area", "latency_cycles", "fmax_estimate",
+                 "energy_per_op_pj", "peak_power_mw", "throughput"):
+        assert getattr(design, prop) == getattr(ref, prop), prop
+    assert design.throughput == 2 * single.throughput
+    assert design.area == 2 * single.area
+    assert design.peak_power_mw == 2 * single.peak_power_mw
+    for batch in (2, 14, 64):
+        got, want = design.report(batch), ref.report(batch)
+        assert got.batch == want.batch == batch // 2
+        for f in ("cycles", "plan_throughput", "working_set_bytes",
+                  "scheduler", "latency_hist", "energy_per_op_pj",
+                  "peak_power_mw"):
+            assert getattr(got, f) == getattr(want, f), f
+        assert [(i.n_ops, i.busy_cycles) for i in got.instances] == \
+            [(i.n_ops, i.busy_cycles) for i in want.instances]
+    with pytest.raises(ValueError, match="does not divide over 2 replicas"):
+        design.report(7)
+    with pytest.raises(ValueError, match="does not divide over 2 replicas"):
+        ref.report(7)
+
+
+def test_replica_device_errors_match_reference(reference_mesh, monkeypatch):
+    messages = reference_mesh[1]
     spec = dataclasses.replace(TD.get("tp3p5_w32"), replicas=2)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        TD.generate(spec, device="cpu")
+    with pytest.raises(TD.DesignError) as err:
+        TD.generate(spec, devices=["cpu"] * 4)
+    assert str(err.value) == messages["mesh_size"]
+    with pytest.raises(TD.DesignError):
+        TD.compile_plan(spec, TD.generate("tp3p5_w32", device="cpu")
+                        .plan.configs, devices=["cpu"])
+    # a machine with 4 cards asked for 5 replicas
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(TD.DesignError) as err:
+        TD.generate(dataclasses.replace(spec, replicas=5))
+    want = messages["too_many"]
+    assert str(err.value).split(" (")[0] == want.split(" (")[0]
+    assert "explicit devices" in str(err.value)
+
+
+def test_replicated_defaults_and_python_ints():
+    spec = dataclasses.replace(TD.get("tp3p5_w32"), replicas=2)
+    design = TD.generate(spec, device="cpu")
+    assert design.devices == (torch.device("cpu"),) * 2
+    assert design.mul(0xDEADBEEF, 0xCAFEBABE) == 0xDEADBEEF * 0xCAFEBABE
+    assert TD.generate("tp3p5_w32", device="cpu").devices is None
+    explicit = TD.compile_plan(spec, design.plan.configs,
+                               devices=["cpu", "cpu"])
+    assert explicit.devices == design.devices
+    assert explicit.area == design.area
+    a, b = _operands(9, 6, 32)
+    assert torch.equal(explicit.mul(_cpu(a), _cpu(b)),
+                       design.mul(_cpu(a), _cpu(b)))
+    with pytest.raises(ValueError, match="not divisible by mesh axis"):
+        design.mul(_cpu(a[:5]), _cpu(b[:5]))
 
 
 def test_compile_plan_matches_generate():

@@ -32,7 +32,8 @@ def test_no_jax_or_reference_imports_in_the_port():
     for sub in ("core", "core/bank", "designs", "kernels/bank_fold",
                 "kernels/mcim_fold", "kernels/prefix_adder",
                 "kernels/karatsuba_ppm", "kernels/int8_matmul", "quant",
-                "optim", "verify", "autotune", "serving"):
+                "optim", "verify", "autotune", "serving", "exact", "rng",
+                "data"):
         assert any(f.parent == port / sub for f in files), sub
     bad =[f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_roots(f)
@@ -74,6 +75,19 @@ def test_port_imports_with_jax_and_reference_blocked():
             "32, 32, budget=64)\n"
             "rep, _ = d.serve(reqs, replicas=2, check=True)\n"
             "assert rep.bit_exact is True\n"
+            "import dataclasses\n"
+            "from repro_torch import data, exact, rng\n"
+            "from repro_torch.core.bank import sharded_execute\n"
+            "r = designs.generate(dataclasses.replace(d.spec, replicas=2), "
+            "devices=['cpu', 'cpu'])\n"
+            "aa = torch.cat([a, a])\n"
+            "assert torch.equal(r.mul(aa, aa), d.mul(aa, aa))\n"
+            "assert float(exact.exact_sum(torch.ones(3))) == 3.0\n"
+            "assert rng.philox4x32(torch.zeros(1, 4, dtype=torch.long), "
+            "torch.zeros(1, 2, dtype=torch.long))[0, 0] == 0x6627E8D5\n"
+            "src = data.SyntheticLM(data.DataConfig(10, 4, 2), device='cpu')\n"
+            "assert src.batch_at(0)['tokens'].shape == (2, 4)\n"
+            "assert hasattr(compress, 'compressed_psum')\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
