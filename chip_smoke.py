@@ -96,6 +96,26 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    ``BinTokenFile`` (a corpus written under ``build/``) on the card,
    each equal to the same call with ``device="cpu"``; the Random123
    known vector on the card; the Philox draw timed.
+8. Model serving: ``repro_torch.launch.serve.main`` with its defaults
+   serves gemma2-9b at full width and depth (42 layers, d_model 3584,
+   vocab 256,000, 9,241,404,928 parameters from a seeded init on the
+   card): 8 requests, 4 slots, prompt 32, 16 new tokens, the admission
+   trace replayed through tp3p5_w32.  It prints the init time, the
+   batched prefill and the engine's decode step (CUDA events, and one
+   step in a CUDA graph for its device time), the step's aten calls,
+   tokens/s, peak memory and the step's byte bound (weights and KV cache
+   over 3.35 TB/s).  Gates: decode steps against fresh prefills (2 x 64
+   tokens, 3 teacher-forced steps) within 0.1 of the logits' std; the
+   int8 KV cache on the same weights serves 4 requests and its argmax
+   agrees with the bf16 cache's on at least half of 4 x 16
+   teacher-forced rows, and ``int_einsum``'s integer dots equal the
+   CPU's at S = 56 and 4096; a 2-layer gemma2-9b at full width (vocab
+   512) gives the CPU's logits within 0.1 through prefill and 3 decode
+   steps; gemma3-1b at full width serves 4 prompts of 1,024 tokens,
+   past its 512-token window (ring caches), and its decode matches
+   prefill at a 1,024-token prefix within 0.05.  Phase 5 also holds
+   ``quantize_rows`` of the gemma2-9b weight to the CPU's bits.  No
+   kernel of phases 2-7 lies on this path.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -104,10 +124,12 @@ checkout, it exits non-zero and prints no result.
 import ctypes
 import dataclasses
 import datetime
+import gc
 import json
 import os
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -143,6 +165,9 @@ WORLD = 2
 WORLD_LIMIT_S = 600
 #: gemma2-9b train_4k: vocab, sequence, global batch
 TRAIN_4K = (256_000, 4096, 256)
+GEMMA2_PARAMS = 9_241_404_928      # the reference's Model.param_count()
+DECODE_P0 = 64                     # decode-vs-prefill prefix (2 rows)
+GEMMA3_PROMPT = 1024               # past gemma3-1b's 512-token window
 
 
 def check(cond, msg):
@@ -882,6 +907,13 @@ def phase_entry_points(device):
     torch.backends.cuda.matmul.allow_tf32 = False     # x @ w in full f32
     w = torch.randn((GEMMA_K, GEMMA_N), generator=gen, device=device)
     qw, sw = quant.quantize_rows(w, axis=0)
+    qw_cpu, sw_cpu = quant.quantize_rows(w.cpu(), axis=0)
+    check(torch.equal(qw.cpu(), qw_cpu)
+          and torch.equal(sw.cpu().view(torch.int32),
+                          sw_cpu.view(torch.int32)),
+          "quantize_rows(w): the card's bits != the CPU's")
+    print(f"  quantize_rows(w) ({GEMMA_K}, {GEMMA_N}): card = CPU bit for "
+          f"bit")
     for m in GEMMA_M:
         x = torch.randn((m, GEMMA_K), generator=gen, device=device)
         got = once("int8_matmul", quant.quantized_matmul, x, w)
@@ -1292,6 +1324,278 @@ def phase_determinism(device):
           f"known vector ok")
 
 
+# ------------------------------------------------------------ model serving
+
+def rel_err(got, want):
+    """max|got - want| / std(want): the reference's logit tolerance."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max()
+            / want.std(correction=0).clamp_min(1e-3)).item()
+
+
+def model_tokens(vocab, shape, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=gen, device=device)
+
+
+def cli_prompts(n, length, vocab):
+    """The serve CLI's prompts (Philox stream 7, one per request)."""
+    from repro_torch.rng import random_tokens
+    return [random_tokens(7, r, torch.arange(length), vocab).numpy()
+            for r in range(n)]
+
+
+def event_ms(fn, n):
+    """Median milliseconds of ``n`` calls, CUDA events around each call
+    (host-bound work reads as its wall time)."""
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def decode_graph_ms(model, caches, cur, pos, replays=10):
+    """Device milliseconds of one decode step: the step captured in a
+    CUDA graph and replayed, so no host work sits between its kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        model.decode_step(caches, cur, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        model.decode_step(caches, cur, pos)
+    graph.replay()
+    ms = event_ms(graph.replay, replays)
+    del graph
+    return ms
+
+
+def aten_calls(fn):
+    """(all aten calls, matrix products) that ``fn`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = mm = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.calls += 1
+            Count.mm += func.__name__.split(".")[0] in ("mm", "bmm")
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.calls, Count.mm
+
+
+def decode_matches_prefill(model, toks, p0, s_cap, tol, label):
+    """Teacher-forced decode steps from a prefill of ``toks[:, :p0]``,
+    each against a fresh prefill's last position (the reference's check,
+    ``tests/test_decode_consistency.py``)."""
+    b = toks.shape[0]
+    caches, _ = model.prefill({"tokens": toks[:, :p0]}, s_cap=s_cap)
+    errs = []
+    for j in range(toks.shape[1] - p0):
+        pos = torch.full((b,), p0 + j, device=toks.device)
+        caches, dec = model.decode_step(caches, toks[:, p0 + j], pos)
+        _, ref = model.prefill({"tokens": toks[:, :p0 + j + 1]},
+                               s_cap=s_cap)
+        check(bool(torch.isfinite(dec).all()), f"{label}: non-finite logits")
+        errs.append(rel_err(dec, ref))
+    check(max(errs) <= tol, f"{label}: decode vs prefill {errs} > {tol}")
+    print(f"  {label}: decode = prefill within {tol} x std at {p0}-"
+          f"{toks.shape[1] - 1} ({', '.join(f'{e:.4f}' for e in errs)})")
+
+
+def served(eng, n, max_new, vocab, label):
+    check(sorted(eng.outputs) == list(range(n))
+          and all(len(o) == max_new + 1 for o in eng.outputs.values())
+          and all(0 <= t < vocab for o in eng.outputs.values() for t in o),
+          f"{label}: outputs")
+    check(eng.arrival_trace() == tuple(sorted(eng.arrival_trace()))
+          and -1 not in eng.completion_trace(), f"{label}: traces")
+
+
+def phase_models(device, smi):
+    """The model-serving path: ``launch.serve`` over the dense models."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import int_einsum
+    print(f"phase 8: model serving (launch.serve over the dense models) "
+          f"[{smi}]")
+    # bf16 products accumulate in float32, as the reference's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) gemma2-9b at full width and depth through the CLI's main
+    slots, plen, max_new = 4, 32, 16
+    s_cap = plen + max_new + 8
+    eng = S.main(["--arch", "gemma2-9b", "--device", str(device)])
+    peak_main = torch.cuda.max_memory_allocated()
+    model, vocab = eng.model, eng.model.cfg.vocab_size
+    n = model.param_count()
+    check(n == GEMMA2_PARAMS == sum(p.numel() for p in model.parameters()),
+          f"gemma2-9b: {n} parameters")
+    served(eng, 8, max_new, vocab, "gemma2-9b serve")
+    ps = cli_prompts(slots, plen, vocab)
+    batch = {"tokens": torch.as_tensor(np.stack(ps), device=device)}
+    torch.cuda.reset_peak_memory_stats()
+    _, logits = model.prefill(batch, s_cap=s_cap)
+    check(logits.shape == (slots, vocab) and bool(torch.isfinite(logits)
+                                                  .all()),
+          "gemma2-9b prefill logits")
+    prefill_ms = event_ms(lambda: model.prefill(batch, s_cap=s_cap), 5)
+    timing = S.ServeEngine(model, slots, plen, s_cap)
+    timing.admit_many(list(enumerate(ps)))
+    check(all(timing.outputs[r][0] == eng.outputs[r][0]
+              for r in range(slots)), "gemma2-9b: prefill tokens moved")
+    step_ms = event_ms(timing.step, 10)
+    calls, mms = aten_calls(lambda: model.decode_step(
+        timing.caches, timing.cur, timing.pos))
+    graph_ms = decode_graph_ms(model, timing.caches, timing.cur, timing.pos)
+    peak_serve = torch.cuda.max_memory_allocated()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv = sum(t.numel() * t.element_size() for layer in timing.caches
+             for t in layer.values())
+    bound_ms = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    print(f"  gemma2-9b: {n:,} parameters; batched prefill {slots} x {plen} "
+          f"{prefill_ms:.3f} ms (median of 5, CUDA events) [{smi}]")
+    print(f"  gemma2-9b decode step, {slots} slots at s_cap {s_cap}: "
+          f"{step_ms:.3f} ms eager (engine step, median of 10), "
+          f"{graph_ms:.3f} ms device time (one step in a CUDA graph); "
+          f"{calls} aten calls a step ({mms} matrix products) [{smi}]")
+    print(f"  gemma2-9b byte bound: ({weights / 1e9:.3f} GB weights + "
+          f"{kv / 1e6:.3f} MB KV cache) / 3.35 TB/s = {bound_ms:.3f} ms; "
+          f"{bound_ms / step_ms:.1%} of it eager, {bound_ms / graph_ms:.1%} "
+          f"in the graph; {slots * 1e3 / step_ms:.1f} tokens/s eager "
+          f"[{smi}]")
+    print(f"  gemma2-9b peak memory: {peak_main / 2**30:.2f} GiB through "
+          f"main (init + serve), {peak_serve / 2**30:.2f} GiB while timing "
+          f"[{smi}]")
+    del timing
+    decode_matches_prefill(model, model_tokens(vocab, (2, DECODE_P0 + 3),
+                                               SEED + 80, device),
+                           DECODE_P0, 2 * DECODE_P0, 0.1, "gemma2-9b")
+
+    # (b) the int8 KV cache on the same weights
+    m8 = build_model(dataclasses.replace(model.cfg, kv_cache_dtype="int8"),
+                     device)
+    m8.load_state_dict(model.state_dict(), assign=True)
+    eng8 = S.ServeEngine(m8, slots, plen, s_cap)
+    S.serve(eng8, ps, max_new)
+    served(eng8, slots, max_new, vocab, "gemma2-9b int8 serve")
+    c16, _ = model.prefill(batch, s_cap=s_cap)
+    c8, _ = m8.prefill(batch, s_cap=s_cap)
+    agree, errs, same = [], [], []
+    for j in range(max_new):            # teacher-forced: the bf16 tokens
+        tok = torch.tensor([eng.outputs[r][j] for r in range(slots)],
+                           device=device)
+        pos = torch.full((slots,), plen + j, device=device)
+        c16, l16 = model.decode_step(c16, tok, pos)
+        c8, l8 = m8.decode_step(c8, tok, pos)
+        agree.append((l16.argmax(-1) == l8.argmax(-1)).float().mean().item())
+        errs.append(rel_err(l8, l16))
+        same.append(l16.argmax(-1).tolist() == [eng.outputs[r][j + 1]
+                                                for r in range(slots)])
+    check(np.mean(agree) >= 0.5, f"int8 cache: argmax agreement "
+          f"{np.mean(agree)} < 0.5")
+    int8_ms = event_ms(lambda: m8.decode_step(c8, tok, pos), 5)
+    print(f"  gemma2-9b int8 KV cache: served {slots} requests; argmax "
+          f"agrees with the bf16 cache on {np.mean(agree):.1%} of "
+          f"{slots} x {max_new} teacher-forced rows (gate 50%); max|d|/std "
+          f"{max(errs):.4f}; bf16 steps reproduce main's tokens on "
+          f"{sum(same)}/{max_new}; decode step {int8_ms:.3f} ms [{smi}]")
+    gen = torch.Generator(device=device).manual_seed(SEED + 81)
+    kv_heads, groups, hd = 8, 2, 256
+    for s in (s_cap, 4096):
+        q8 = torch.randint(-127, 128, (slots, 1, kv_heads, groups, hd),
+                           dtype=torch.int8, generator=gen, device=device)
+        k8 = torch.randint(-127, 128, (slots, s, kv_heads, hd),
+                           dtype=torch.int8, generator=gen, device=device)
+        p8 = torch.randint(-127, 128, (slots, kv_heads, groups, 1, s),
+                           dtype=torch.int8, generator=gen, device=device)
+        for eq, a, b in (("bqkgd,bskd->bkgqs", q8, k8),
+                         ("bkgqs,bskd->bqkgd", p8, k8)):
+            check(torch.equal(int_einsum(eq, a, b).cpu(),
+                              int_einsum(eq, a.cpu(), b.cpu())),
+                  f"int8 dots {eq} at S={s}: card != CPU")
+    print(f"  decode_attention_int8's integer dots (QK and PV, S = {s_cap} "
+          f"and 4096): card (float64) = CPU (int64)")
+    del eng, eng8, m8, model, c8, c16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU: full width, 2 layers, vocab 512
+    cfg2 = get_config("gemma2-9b", n_layers=2, vocab_size=512)
+    card = build_model(cfg2, device).init(
+        torch.Generator(device=device).manual_seed(SEED + 82))
+    host = build_model(cfg2, "cpu")
+    host.load_state_dict(card.state_dict())
+    toks = model_tokens(512, (2, DECODE_P0 + 3), SEED + 83, device)
+    errs = []
+    t0 = time.perf_counter()
+    runs = []
+    for m, t in ((card, toks), (host, toks.cpu())):
+        caches, logits = m.prefill({"tokens": t[:, :DECODE_P0]},
+                                   s_cap=2 * DECODE_P0)
+        out = [logits]
+        for j in range(3):
+            caches, logits = m.decode_step(
+                caches, t[:, DECODE_P0 + j],
+                torch.full((2,), DECODE_P0 + j, device=t.device))
+            out.append(logits)
+        runs.append(out)
+    errs = [rel_err(a.cpu(), b) for a, b in zip(*runs)]
+    check(max(errs) <= 0.1, f"gemma2-9b 2 layers: card vs CPU {errs}")
+    print(f"  gemma2-9b full width, 2 layers, vocab 512: card = CPU within "
+          f"0.1 x std, prefill and 3 decode steps ("
+          f"{', '.join(f'{e:.4f}' for e in errs)}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) gemma3-1b at full width, prompts past its 512-token window
+    cfg3 = get_config("gemma3-1b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m3 = build_model(cfg3, device).init(
+        torch.Generator(device=device).manual_seed(SEED + 84))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plen3 = GEMMA3_PROMPT
+    ps3 = cli_prompts(slots, plen3, cfg3.vocab_size)
+    eng3 = S.ServeEngine(m3, slots, plen3, plen3 + max_new + 8)
+    t0 = time.perf_counter()
+    S.serve(eng3, ps3, max_new)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    served(eng3, slots, max_new, cfg3.vocab_size, "gemma3-1b serve")
+    batch3 = {"tokens": torch.as_tensor(np.stack(ps3), device=device)}
+    prefill3_ms = event_ms(lambda: m3.prefill(batch3, s_cap=eng3.s_cap), 3)
+    step3_ms = event_ms(eng3.step, 5)
+    print(f"  gemma3-1b: {m3.param_count():,} parameters, init {init_s:.3f} "
+          f"s; served {slots} x {plen3}-token prompts (window "
+          f"{cfg3.window}) + {max_new} new in {serve_s:.2f} s; batched "
+          f"prefill {prefill3_ms:.3f} ms, decode step {step3_ms:.3f} ms, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    decode_matches_prefill(m3, model_tokens(cfg3.vocab_size,
+                                            (2, plen3 + 3), SEED + 85,
+                                            device),
+                           plen3, eng3.s_cap, 0.05, "gemma3-1b")
+    del m3, eng3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1308,6 +1612,7 @@ def main():
     phase_replicas(device)
     phase_collectives()
     phase_determinism(device)
+    phase_models(device, smi)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

@@ -10,11 +10,13 @@ def quantize_rows(x: torch.Tensor, axis: int = -1):
     """Symmetric per-row int8 quantization along ``axis``: (q, scale).
 
     Plain PyTorch, as in the reference (no kernel there either);
-    ``torch.round`` rounds half to even like ``jnp.round``.
+    ``torch.round`` rounds half to even like ``jnp.round``.  The scale
+    divides by a tensor on ``x``'s device: CUDA divides by a CPU scalar
+    as a multiply by its reciprocal, which can round otherwise.
     """
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.where(amax == 0, 1.0, amax / 127.0)
+    scale = torch.where(amax == 0, 1.0, amax / amax.new_tensor(127.0))
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale.squeeze(axis)
 

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no jax, nothing of the reference package.
 
-``src/repro_torch/**.py``, ``chip_smoke.py`` and
-``scripts/row_tiles_bench.py`` (both run on a machine without jax) may
+``src/repro_torch/**.py``, ``chip_smoke.py``,
+``scripts/row_tiles_bench.py`` and ``scripts/decode_drift.py`` (all run
+on a machine without jax) may
 import torch, numpy, the standard library, ``repro_torch`` and
 ``chip_smoke`` -- never ``jax`` or ``repro``.
 """
@@ -26,14 +27,15 @@ def _imported_roots(path):
 
 def test_no_jax_or_reference_imports_in_the_port():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "row_tiles_bench.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "row_tiles_bench.py",
+              ROOT / "scripts" / "decode_drift.py"]
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for sub in ("core", "core/bank", "designs", "kernels/bank_fold",
                 "kernels/mcim_fold", "kernels/prefix_adder",
                 "kernels/karatsuba_ppm", "kernels/int8_matmul", "quant",
                 "optim", "verify", "autotune", "serving", "exact", "rng",
-                "data"):
+                "data", "configs", "models", "launch"):
         assert any(f.parent == port / sub for f in files), sub
     bad =[f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_roots(f)
@@ -52,6 +54,7 @@ def test_port_imports_with_jax_and_reference_blocked():
             "prefix_adder\n"
             "from repro_torch import quant\n"
             "from repro_torch.optim import compress\n"
+            "import numpy as np\n"
             "import torch\n"
             "d = designs.generate('tp3p5_w32', device='cpu')\n"
             "assert d.mul(0xDEADBEEF, 0xCAFEBABE) == "
@@ -88,6 +91,14 @@ def test_port_imports_with_jax_and_reference_blocked():
             "src = data.SyntheticLM(data.DataConfig(10, 4, 2), device='cpu')\n"
             "assert src.batch_at(0)['tokens'].shape == (2, 4)\n"
             "assert hasattr(compress, 'compressed_psum')\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.launch import serve\n"
+            "from repro_torch.models import build_model\n"
+            "m = build_model(get_config('gemma3-1b', smoke=True), 'cpu')\n"
+            "m.init(torch.Generator().manual_seed(0))\n"
+            "eng = serve.ServeEngine(m, 2, 4, 12)\n"
+            "serve.serve(eng, [np.arange(4)] * 3, 2)\n"
+            "assert eng.arrival_trace() == (0, 0, 2)\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

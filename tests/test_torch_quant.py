@@ -119,6 +119,18 @@ def test_quantize_rows_matches_reference(axis):
     assert (np.abs(back.numpy() - x) <= 0.5 * step + 1e-6).all()
 
 
+def test_quantize_rows_columns_of_a_gemma2_weight_match_reference():
+    """Per-column scales of a (3584, 512) slice of gemma2-9b's MLP weight
+    shape, bit for bit (the scale divides by a tensor on the operand's
+    device, the reference's true division)."""
+    w = np.random.default_rng(17).standard_normal((3584, 512)).astype(
+        np.float32)
+    q, s = repro_torch.quant.quantize_rows(torch.from_numpy(w), axis=0)
+    rq, rs = RI.quantize_rows(jnp.asarray(w), axis=0)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    _same_f32(s, rs)
+
+
 @pytest.mark.parametrize("m,k,n,block", [(64, 256, 64, 64),
                                          (128, 128, 256, 128),
                                          (50, 96, 40, 32)])
