@@ -116,6 +116,31 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    prefill at a 1,024-token prefix within 0.05.  Phase 5 also holds
    ``quantize_rows`` of the gemma2-9b weight to the CPU's bits.  No
    kernel of phases 2-7 lies on this path.
+9. The other model families, each at full width from a seeded init on
+   the card and freed before the next: (a) llama4-scout-17b-a16e at 12
+   of its 48 layers (28,496,163,840 parameters, 57.0 GB) through
+   ``ServeEngine`` at the serve CLI's defaults (8 requests, 4 slots,
+   prompt 32, 16 new): the batched prefill (expert choice, C = 8), the
+   decode step (dense token choice over all 16 experts) eager and as a
+   CUDA graph against its byte bound, decode = a token-choice prefill
+   (1 x 33-35 tokens) within 0.1, and the token-choice decode against
+   expert-choice prefills printed (routing differs by design); (b, c)
+   mamba2-370m and zamba2-1.2b at full depth through ``ServeEngine`` with
+   4 prompts of 1,000 tokens (8 SSD chunks, the last padded): prefill,
+   step eager and graph, byte bound (zamba2's shared block once per
+   application), decode against a fresh prefill (gate 0.5; by depth
+   where it passes the reference's smoke tolerance); (d) hubert-xlarge's
+   ``encoder_forward`` of 4 x 1,000 frames against its byte and
+   operation bound; (e) paligemma-3b's ``vlm_prefill`` of 4 x (256 image
+   + 32 text) tokens and 16 decode steps, timed, decode = prefill within
+   0.1; (f) each of dbrx-132b, llama4-scout, mamba2, zamba2, hubert and
+   paligemma at a cut that keeps its structure (2 layers, zamba2 one
+   group and a tail, vocab 512, 4 experts; widths full) on the card
+   against the CPU with the same weights (``params_from_numpy`` of the
+   card's weights as numpy): logits within 0.1 of the std; the MoE
+   cuts' expert-choice prefill and ``moe.combine`` bit-equal across two
+   card calls; the SSM cuts' decode = prefill within the reference's
+   tolerances (0.05, 0.12).  No kernel of phases 2-7 lies on this path.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -168,6 +193,13 @@ TRAIN_4K = (256_000, 4096, 256)
 GEMMA2_PARAMS = 9_241_404_928      # the reference's Model.param_count()
 DECODE_P0 = 64                     # decode-vs-prefill prefix (2 rows)
 GEMMA3_PROMPT = 1024               # past gemma3-1b's 512-token window
+BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+STEP_REPEATS = 10                  # median of 10 where a step repeats
+LLAMA4_LAYERS = 12                 # of 48: 57.0 GB of weights on 80 GB
+SSM_PROMPT = 1000                  # 8 chunks of 128, the last padded
+#: the reference's decode-consistency tolerances (smoke size)
+SSM_TOL = {"mamba2-370m": 0.05, "zamba2-1.2b": 0.12}
+SSM_DRIFT_GATE = 0.5               # full depth: cache faults read 1-10x
 
 
 def check(cond, msg):
@@ -1333,6 +1365,19 @@ def rel_err(got, want):
             / want.std(correction=0).clamp_min(1e-3)).item()
 
 
+def rel_err_past_ulp(got, want):
+    """``rel_err`` of what each element differs by past one bf16 ulp of
+    ``want``: two devices' bf16 logits may round one step apart, and one
+    step of a large logit (a tied embedding's logit of the token just
+    read: ~40 against a std of 1.7 at paligemma-3b's width) is itself
+    0.15 of the std."""
+    got, want = got.float(), want.float()
+    _, exp = torch.frexp(want.abs())
+    ulp = torch.ldexp(torch.ones_like(want), exp - 8)
+    past = ((got - want).abs() - ulp).clamp_min(0)
+    return (past.max() / want.std(correction=0).clamp_min(1e-3)).item()
+
+
 def model_tokens(vocab, shape, seed, device):
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randint(0, vocab, shape, generator=gen, device=device)
@@ -1393,10 +1438,10 @@ def aten_calls(fn):
     return Count.calls, Count.mm
 
 
-def decode_matches_prefill(model, toks, p0, s_cap, tol, label):
-    """Teacher-forced decode steps from a prefill of ``toks[:, :p0]``,
-    each against a fresh prefill's last position (the reference's check,
-    ``tests/test_decode_consistency.py``)."""
+def decode_vs_prefill(model, toks, p0, s_cap):
+    """max|d|/std of teacher-forced decode steps from a prefill of
+    ``toks[:, :p0]``, each against a fresh prefill's last position (the
+    reference's check, ``tests/test_decode_consistency.py``)."""
     b = toks.shape[0]
     caches, _ = model.prefill({"tokens": toks[:, :p0]}, s_cap=s_cap)
     errs = []
@@ -1405,14 +1450,22 @@ def decode_matches_prefill(model, toks, p0, s_cap, tol, label):
         caches, dec = model.decode_step(caches, toks[:, p0 + j], pos)
         _, ref = model.prefill({"tokens": toks[:, :p0 + j + 1]},
                                s_cap=s_cap)
-        check(bool(torch.isfinite(dec).all()), f"{label}: non-finite logits")
+        check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
         errs.append(rel_err(dec, ref))
+    return errs
+
+
+def decode_matches_prefill(model, toks, p0, s_cap, tol, label):
+    errs = decode_vs_prefill(model, toks, p0, s_cap)
     check(max(errs) <= tol, f"{label}: decode vs prefill {errs} > {tol}")
     print(f"  {label}: decode = prefill within {tol} x std at {p0}-"
           f"{toks.shape[1] - 1} ({', '.join(f'{e:.4f}' for e in errs)})")
 
 
 def served(eng, n, max_new, vocab, label):
+    """The engine's outputs and traces; token ids below ``vocab`` (the
+    padded vocabulary: argmax runs over every logit, as the
+    reference's)."""
     check(sorted(eng.outputs) == list(range(n))
           and all(len(o) == max_new + 1 for o in eng.outputs.values())
           and all(0 <= t < vocab for o in eng.outputs.values() for t in o),
@@ -1596,6 +1649,420 @@ def phase_models(device, smi):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- the other families
+
+def free():
+    """Release the card's cached blocks; the caller drops its last
+    references (``del``) first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def built(cfg, device, seed):
+    """A seeded model of ``cfg`` on ``device``: (model, init seconds)."""
+    from repro_torch.models import build_model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def param_bytes(model, skip=()):
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if name.split(".")[0] not in skip)
+
+
+def cache_bytes(caches):
+    return sum(t.numel() * t.element_size() for c in caches
+               for t in c.values())
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def numpy_tree(model):
+    """``model``'s weights as the reference's stacked parameter tree of
+    numpy arrays (bf16 as uint16 bits), the input of
+    ``params_from_numpy``."""
+    from repro_torch.models import api
+    tpl = api.template(model.cfg)
+    sd = model.state_dict()
+    tree = {}
+    for name, path, idx, _ in api.param_layout(model.cfg):
+        t = sd[name].cpu()
+        arr = (t.view(torch.int16).numpy().view(np.uint16)
+               if t.dtype == torch.bfloat16 else t.numpy())
+        node, spec = tree, tpl
+        for key in path[:-1]:
+            node, spec = node.setdefault(key, {}), spec[key]
+        if not idx:
+            node[path[-1]] = arr
+            continue
+        if path[-1] not in node:
+            node[path[-1]] = np.empty(spec[path[-1]].shape, arr.dtype)
+        node[path[-1]][idx] = arr
+    return tree
+
+
+def step_figures(model, eng, label, bound_ms, smi, prefill_ms, plen):
+    """Time ``eng``'s decode step (eager and as a CUDA graph) and print
+    it beside ``bound_ms`` and the batched prefill."""
+    step_ms = event_ms(eng.step, STEP_REPEATS)
+    graph_ms = decode_graph_ms(model, eng.caches, eng.cur, eng.pos)
+    print(f"  {label}: batched prefill {eng.slots} x {plen} "
+          f"{prefill_ms:.3f} ms ({eng.slots * plen * 1e3 / prefill_ms:.0f} "
+          f"tokens/s); decode step {step_ms:.3f} ms eager (median of "
+          f"{STEP_REPEATS}), {graph_ms:.3f} ms as a CUDA graph; byte bound "
+          f"{bound_ms:.3f} ms ({bound_ms / step_ms:.1%} eager, "
+          f"{bound_ms / graph_ms:.1%} graph); "
+          f"{eng.slots * 1e3 / step_ms:.1f} tokens/s eager [{smi}]")
+
+
+def families_llama4(device, smi):
+    """(a) llama4-scout at full width, 12 of 48 layers, through
+    ``ServeEngine`` at the serve CLI's default traffic."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import api, base
+    name = "llama4-scout-17b-a16e"
+    cfg = get_config(name, n_layers=LLAMA4_LAYERS)
+    full = base.param_count(api.template(get_config(name)))
+    model, init_s = built(cfg, device, SEED + 90)
+    n, vocab = model.param_count(), cfg.vocab_size
+    check(n == sum(p.numel() for p in model.parameters()),
+          f"{name}: parameter count")
+    print(f"  {name}: {n:,} of {full:,} parameters (reduced: n_layers "
+          f"48->{LLAMA4_LAYERS}; {param_bytes(model) / 1e9:.1f} GB), seeded "
+          f"init {init_s:.3f} s, peak {peak_gib():.2f} GiB [{smi}]")
+    slots, plen, max_new = 4, 32, 16
+    s_cap = plen + max_new + 8
+    eng = S.ServeEngine(model, slots, plen, s_cap)
+    t0 = time.perf_counter()
+    S.serve(eng, cli_prompts(8, plen, vocab), max_new)
+    torch.cuda.synchronize()
+    served(eng, 8, max_new, cfg.padded_vocab, f"{name} serve")
+    print(f"  {name}: served 8 requests (4 slots, prompt {plen}, "
+          f"{max_new} new) in {time.perf_counter() - t0:.2f} s")
+    ps = cli_prompts(slots, plen, vocab)
+    batch = {"tokens": torch.as_tensor(np.stack(ps), device=device)}
+    prefill_ms = event_ms(lambda: model.prefill(batch, s_cap=s_cap),
+                          STEP_REPEATS)
+    timing = S.ServeEngine(model, slots, plen, s_cap)
+    timing.admit_many(list(enumerate(ps)))
+    check(all(timing.outputs[r][0] == eng.outputs[r][0]
+              for r in range(slots)), f"{name}: prefill tokens moved")
+    # dense token choice reads every expert: all weights but the
+    # embedding (4 rows gathered), and the KV cache
+    bound_ms = (param_bytes(model, skip=("embed",))
+                + cache_bytes(timing.caches)) / HBM_BYTES_PER_S * 1e3
+    step_figures(model, timing, name, bound_ms, smi, prefill_ms, plen)
+    print(f"  {name}: peak {peak_gib():.2f} GiB")
+    del timing, eng
+    decode_matches_prefill(model, model_tokens(vocab, (1, plen + 3),
+                                               SEED + 91, device),
+                           plen, s_cap, 0.1,
+                           f"{name} (token choice: 1 x {plen}-{plen + 3} "
+                           f"tokens <= 4 x 16 experts)")
+    errs = decode_vs_prefill(model, model_tokens(vocab, (slots, plen + 3),
+                                                 SEED + 92, device),
+                             plen, s_cap)
+    print(f"  {name}: token-choice decode against expert-choice prefills "
+          f"of {slots} x {plen + 1}-{plen + 3} tokens (C = "
+          f"{slots * (plen + 1) // cfg.n_experts}-"
+          f"{slots * (plen + 3) // cfg.n_experts}): max|d|/std "
+          f"{', '.join(f'{e:.4f}' for e in errs)} (routing differs by "
+          f"design; not gated)")
+    del model
+    free()
+
+
+def families_ssm(device, smi, name):
+    """(b, c) mamba2 / zamba2 at full width and depth, ``ServeEngine``
+    with 4 prompts of 1,000 tokens; decode against a fresh prefill at
+    full depth, and by depth where it passes the reference's tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import hybrid
+    cfg = get_config(name)
+    model, init_s = built(cfg, device, SEED + 93)
+    vocab = cfg.vocab_size
+    every, n_groups, n_tail = hybrid.pattern(cfg)
+    reuse = (f", one shared block applied {n_groups} times"
+             if cfg.shared_attn_every else "")
+    print(f"  {name}: {model.param_count():,} parameters (full width and "
+          f"depth: {n_groups * every + n_tail} Mamba layers{reuse}), "
+          f"seeded init {init_s:.3f} s [{smi}]")
+    slots, plen, max_new = 4, SSM_PROMPT, 16
+    s_cap = plen + max_new + 8
+    ps = cli_prompts(slots, plen, vocab)
+    eng = S.ServeEngine(model, slots, plen, s_cap)
+    t0 = time.perf_counter()
+    S.serve(eng, ps, max_new)
+    torch.cuda.synchronize()
+    served(eng, slots, max_new, cfg.padded_vocab, f"{name} serve")
+    print(f"  {name}: served {slots} x {plen}-token prompts + {max_new} "
+          f"new in {time.perf_counter() - t0:.2f} s")
+    batch = {"tokens": torch.as_tensor(np.stack(ps), device=device)}
+    prefill_ms = event_ms(lambda: model.prefill(batch, s_cap=s_cap),
+                          STEP_REPEATS)
+    timing = S.ServeEngine(model, slots, plen, s_cap)
+    timing.admit_many(list(enumerate(ps)))
+    check(all(timing.outputs[r][0] == eng.outputs[r][0]
+              for r in range(slots)), f"{name}: prefill tokens moved")
+    # every weight but an untied embedding; the shared block once per
+    # application; caches read, the SSM state and window written
+    weights = param_bytes(model, skip=() if cfg.tie_embeddings
+                          else ("embed",))
+    if cfg.shared_attn_every:
+        shared = sum(p.numel() * p.element_size()
+                     for p in model.shared_attn.parameters())
+        weights += (n_groups - 1) * shared
+    ssm_state = sum(t.numel() * t.element_size() for c in timing.caches
+                    for k, t in c.items() if k in ("conv", "state"))
+    bound_ms = (weights + cache_bytes(timing.caches) + ssm_state) \
+        / HBM_BYTES_PER_S * 1e3
+    step_figures(model, timing, name, bound_ms, smi, prefill_ms, plen)
+    print(f"  {name}: bound bytes {weights / 1e9:.3f} GB weights, "
+          f"{cache_bytes(timing.caches) / 1e6:.1f} MB caches read, "
+          f"{ssm_state / 1e6:.1f} MB SSM state written; peak "
+          f"{peak_gib():.2f} GiB")
+    del timing, eng
+    toks = model_tokens(vocab, (2, plen + 3), SEED + 94, device)
+    errs = decode_vs_prefill(model, toks, plen, s_cap)
+    check(max(errs) < SSM_DRIFT_GATE, f"{name}: full-depth decode vs "
+          f"prefill {errs} >= {SSM_DRIFT_GATE}")
+    tol = SSM_TOL[name]
+    print(f"  {name}: decode vs fresh prefill at full depth, 2 x {plen}-"
+          f"{plen + 2}: max|d|/std {', '.join(f'{e:.4f}' for e in errs)} "
+          f"(gate {SSM_DRIFT_GATE}; the reference's smoke tolerance {tol} "
+          f"{'held' if max(errs) <= tol else 'exceeded'})")
+    del model
+    free()
+    if max(errs) > tol:
+        depths = ([every * g + n_tail for g in (1, 2, 4)]
+                  if cfg.shared_attn_every else [1, 4, 12, 24])
+        for n_layers in depths:
+            cut, _ = built(get_config(name, n_layers=n_layers), device,
+                           SEED + 93)
+            e = decode_vs_prefill(cut, toks, plen, s_cap)
+            print(f"  {name} drift by depth: {n_layers} layers, max|d|/std "
+                  f"{', '.join(f'{x:.4f}' for x in e)}")
+            del cut
+            free()
+
+
+def families_hubert(device, smi):
+    """(d) hubert-xlarge's encoder forward at full width and depth."""
+    from repro_torch.configs import get_config
+    cfg = get_config("hubert-xlarge")
+    model, init_s = built(cfg, device, SEED + 95)
+    gen = torch.Generator(device=device).manual_seed(SEED + 96)
+    b, t = 4, SSM_PROMPT
+    frames = torch.randn((b, t, 512), generator=gen, device=device).to(
+        torch.bfloat16)
+    caches, logits = model.prefill({"frames": frames})
+    check(caches is None and logits.shape == (b, t, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "hubert-xlarge logits")
+    fwd_ms = event_ms(lambda: model.prefill({"frames": frames}),
+                      STEP_REPEATS)
+    mats = sum(p.numel() for p in model.parameters() if p.dim() == 2)
+    flops = 2 * mats * b * t + cfg.n_layers * 4 * b * cfg.n_heads \
+        * t * t * cfg.head_dim
+    n_bytes = param_bytes(model) + frames.numel() * 2 + logits.numel() * 2
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"  hubert-xlarge: {model.param_count():,} parameters (full "
+          f"width and depth), seeded init {init_s:.3f} s; encoder_forward "
+          f"of {b} x {t} frames {fwd_ms:.3f} ms (median of "
+          f"{STEP_REPEATS}); bound {bound_ms:.3f} ms by "
+          f"{'operations' if ops_ms >= bytes_ms else 'bytes'} "
+          f"({flops / 1e12:.2f} TFLOP / 989 TFLOP/s = {ops_ms:.3f} ms; "
+          f"{n_bytes / 1e9:.3f} GB / 3.35 TB/s = {bytes_ms:.3f} ms), "
+          f"{bound_ms / fwd_ms:.1%} of it; peak {peak_gib():.2f} GiB [{smi}]")
+    del model, logits
+    free()
+
+
+def families_paligemma(device, smi):
+    """(e) paligemma-3b: ``vlm_prefill`` of 4 x (256 image + 32 text)
+    tokens, then 16 decode steps, driven directly."""
+    from repro_torch.configs import get_config
+    cfg = get_config("paligemma-3b")
+    model, init_s = built(cfg, device, SEED + 97)
+    gen = torch.Generator(device=device).manual_seed(SEED + 98)
+    b, st, max_new, nv = 4, 32, 16, cfg.n_vis_tokens
+    s_cap = nv + st + max_new + 8
+    image = torch.randn((b, nv, cfg.d_vis), generator=gen,
+                        device=device).to(torch.bfloat16)
+    toks = model_tokens(cfg.vocab_size, (b, st + max_new), SEED + 99,
+                        device)
+
+    def prefill(n_text=st):
+        return model.prefill({"image_embeds": image,
+                              "tokens": toks[:, :n_text]}, s_cap=s_cap)
+    prefill_ms = event_ms(prefill, STEP_REPEATS)
+    caches, logits = prefill()
+    for j in range(max_new):           # teacher-forced
+        pos = torch.full((b,), nv + st + j, device=device)
+        caches, logits = model.decode_step(caches, toks[:, st + j], pos)
+        check(bool(torch.isfinite(logits).all()), "paligemma-3b decode")
+    _, fresh = prefill(st + max_new)
+    caches, logits = prefill(st + max_new - 1)
+    pos = torch.full((b,), nv + st + max_new - 1, device=device)
+    tok = toks[:, st + max_new - 1]
+    err = rel_err(model.decode_step(caches, tok, pos)[1], fresh)
+    check(err <= 0.1, f"paligemma-3b: decode vs prefill {err} > 0.1")
+    step_ms = event_ms(lambda: model.decode_step(caches, tok, pos),
+                       STEP_REPEATS)
+    graph_ms = decode_graph_ms(model, caches, tok, pos)
+    bound_ms = (param_bytes(model) + cache_bytes(caches)) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"  paligemma-3b: {model.param_count():,} parameters (full width "
+          f"and depth), seeded init {init_s:.3f} s; vlm_prefill {b} x "
+          f"({nv} image + {st} text) {prefill_ms:.3f} ms; decode step "
+          f"{step_ms:.3f} ms eager, {graph_ms:.3f} ms as a CUDA graph; byte "
+          f"bound {bound_ms:.3f} ms ({bound_ms / step_ms:.1%} eager, "
+          f"{bound_ms / graph_ms:.1%} graph); decode = prefill at "
+          f"{nv + st + max_new} tokens within 0.1 ({err:.4f}); peak "
+          f"{peak_gib():.2f} GiB [{smi}]")
+    del model, caches
+    free()
+
+
+#: (f) the card against the CPU: arch -> (overrides, what they cut)
+CUTS = {
+    "dbrx-132b": (dict(n_layers=2, vocab_size=512, n_experts=4),
+                  "n_layers 40->2, vocab 100352->512, experts 16->4"),
+    "llama4-scout-17b-a16e": (
+        dict(n_layers=2, vocab_size=512, n_experts=4),
+        "n_layers 48->2, vocab 202048->512, experts 16->4"),
+    "mamba2-370m": (dict(n_layers=2, vocab_size=512),
+                    "n_layers 48->2, vocab 50280->512"),
+    "zamba2-1.2b": (dict(n_layers=7, vocab_size=512),
+                    "n_layers 38->7 (one group of 6 and a tail of 1), "
+                    "vocab 32000->512"),
+    "hubert-xlarge": (dict(n_layers=2), "n_layers 48->2"),
+    "paligemma-3b": (dict(n_layers=2, vocab_size=512),
+                     "n_layers 18->2, vocab 257216->512"),
+}
+
+
+def cut_run(model, family, inputs, p0):
+    """Prefill and 3 teacher-forced decode steps (the encoder: its
+    forward): the list of logits."""
+    dev = model.device
+    if family == "encoder":
+        return [model.prefill({"frames": inputs["frames"].to(dev)})[1]]
+    toks = inputs["tokens"].to(dev)
+    batch = {k: v.to(dev) for k, v in inputs.items()}
+    batch["tokens"] = toks[:, :p0]
+    off = model.cfg.n_vis_tokens if family == "vlm" else 0
+    caches, logits = model.prefill(batch, s_cap=2 * p0 + off)
+    out = [logits]
+    for j in range(toks.shape[1] - p0):
+        caches, logits = model.decode_step(
+            caches, toks[:, p0 + j],
+            torch.full((toks.shape[0],), off + p0 + j, device=dev))
+        out.append(logits)
+    return out
+
+
+def families_cuts(device, smi):
+    """(f) each family at a cut that keeps its structure: the same
+    weights on the card and on the CPU (``params_from_numpy`` of the
+    card's weights as numpy), logits within 0.1 of the std; the
+    expert-choice prefill and combine bit-equal across two card calls;
+    the SSM's decode against a fresh prefill at the reference's
+    tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe, params_from_numpy
+    for i, (name, (over, what)) in enumerate(CUTS.items()):
+        cfg = get_config(name, **over)
+        card, _ = built(cfg, device, SEED + 100 + i)
+        t0 = time.perf_counter()
+        host = build_model(cfg, "cpu")
+        host.load_state_dict(params_from_numpy(cfg, numpy_tree(card),
+                                               "cpu"))
+        check(all(torch.equal(a.cpu(), b) for a, b in
+                  zip(card.state_dict().values(),
+                      host.state_dict().values())), f"{name}: weights")
+        gen = torch.Generator(device=device).manual_seed(SEED + 110 + i)
+        p0 = 200 if cfg.family in ("ssm", "hybrid", "encoder") else 64
+        inputs = {"tokens": torch.randint(0, cfg.vocab_size, (2, p0 + 3),
+                                          generator=gen, device=device)}
+        if cfg.family == "encoder":
+            inputs = {"frames": torch.randn((2, p0, 512), generator=gen,
+                                            device=device).to(
+                                                torch.bfloat16)}
+        if cfg.family == "vlm":
+            inputs["image_embeds"] = torch.randn(
+                (2, cfg.n_vis_tokens, cfg.d_vis), generator=gen,
+                device=device).to(torch.bfloat16)
+        got = cut_run(card, cfg.family, inputs, p0)
+        t1 = time.perf_counter()
+        want = cut_run(host, cfg.family, {key: v.cpu() for key, v in
+                                          inputs.items()}, p0)
+        cpu_s = time.perf_counter() - t1
+        errs = [rel_err(a.cpu(), b) for a, b in zip(got, want)]
+        past = [rel_err_past_ulp(a.cpu(), b) for a, b in zip(got, want)]
+        check(max(past) <= 0.1, f"{name} cut: card vs CPU {past} past one "
+              f"ulp ({errs})")
+        extra = ""
+        if cfg.family == "moe":        # expert choice: 2 x 64 > 4 x 4
+            again = cut_run(card, cfg.family, inputs, p0)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name}: two card calls differ")
+            t = 2 * p0
+            idx = torch.stack([torch.randperm(t, generator=gen,
+                                              device=device)
+                               for _ in range(cfg.n_experts)])
+            y = torch.randn((cfg.n_experts, t, cfg.d_model), generator=gen,
+                            device=device).to(torch.bfloat16)
+            check(torch.equal(moe.combine(y, idx, t),
+                              moe.combine(y, idx, t)),
+                  f"{name}: expert-choice combine differs between calls")
+            extra = (f"; prefill logits and the combine of {cfg.n_experts}"
+                     f" x {t} rows (every token from every expert) "
+                     f"bit-equal across two card calls")
+        if cfg.family in ("ssm", "hybrid"):
+            errs_d = decode_vs_prefill(card, inputs["tokens"], p0, 2 * p0)
+            tol = SSM_TOL[name]
+            check(max(errs_d) <= tol, f"{name} cut: decode vs prefill "
+                  f"{errs_d} > {tol}")
+            extra = (f"; decode = prefill within {tol} on the card ("
+                     f"{', '.join(f'{e:.4f}' for e in errs_d)})")
+        print(f"  {name} cut ({what}; widths full): "
+              f"{card.param_count():,} parameters; card = CPU within 0.1 "
+              f"x std past one bf16 ulp ({', '.join(f'{e:.4f}' for e in past)}"
+              f"; max|d|/std {', '.join(f'{e:.4f}' for e in errs)}; CPU "
+              f"{cpu_s:.1f} s, {time.perf_counter() - t0:.1f} s with the "
+              f"copy){extra}")
+        del card, host, got, want
+        free()
+
+
+def phase_families(device, smi):
+    """The other model families on the card: moe, ssm, hybrid, encoder
+    and vlm, each freed before the next is built."""
+    print(f"phase 9: the other model families (moe, ssm, hybrid, encoder, "
+          f"vlm) [{smi}]")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    free()
+    t0 = time.perf_counter()
+    families_llama4(device, smi)
+    for name in ("mamba2-370m", "zamba2-1.2b"):
+        families_ssm(device, smi, name)
+    families_hubert(device, smi)
+    families_paligemma(device, smi)
+    families_cuts(device, smi)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1613,6 +2080,7 @@ def main():
     phase_collectives()
     phase_determinism(device)
     phase_models(device, smi)
+    phase_families(device, smi)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

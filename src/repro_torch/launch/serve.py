@@ -5,8 +5,12 @@ A slot manager keeps ``--slots`` concurrent sequences in flight; requests
 decoded one token per engine step across the whole batch.  Finished
 sequences free their slot immediately (continuous batching), and bursts
 of same-length arrivals share ONE batched prefill call.  The engine
-keeps one preallocated KV cache a layer for all slots and updates it in
-place.
+keeps the model's caches (``Model.init_cache``: one KV cache a layer, or
+a hybrid's per application KV and SSM state) for all slots and updates
+them in place.  It feeds ``{"tokens"}`` only, so it serves the dense,
+moe, ssm and hybrid families; the encoder has no decode step and the
+VLM needs image embeddings, which ``main`` refuses, as the reference's
+engine cannot serve them either.
 
 Admissions are recorded as an *arrival trace* (``arrival_trace()``):
 the engine cycle each request entered the system, nondecreasing, which
@@ -30,8 +34,10 @@ import torch
 from ..configs import ARCH_NAMES, get_config
 from ..device import resolve_device
 from ..models import build_model
-from ..models.transformer import init_cache
 from ..rng import random_tokens
+
+#: the families whose model ``ServeEngine`` drives (token prompts)
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class ServeEngine:
@@ -86,9 +92,7 @@ class ServeEngine:
                                                 s_cap=self.s_cap)
             toks = torch.argmax(logits, -1)
             if self.caches is None:
-                self.caches = init_cache(
-                    self.model.cache_spec(self.slots, self.s_cap),
-                    self.model.device)
+                self.caches = self.model.init_cache(self.slots, self.s_cap)
             idx = torch.tensor(slots, device=self.model.device)
             for full, batched in zip(self.caches, caches):
                 for name, buf in full.items():
@@ -183,8 +187,15 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family not in SERVED_FAMILIES:
+        needs = {"encoder": "frames and has no decode step",
+                 "vlm": "image embeddings beside its tokens"}
+        raise ValueError(
+            f"--arch {args.arch}: the {cfg.family} family takes "
+            f"{needs[cfg.family]}; the engine serves token prompts "
+            f"({', '.join(SERVED_FAMILIES)})")
+    device = resolve_device(args.device)
     model = build_model(cfg, device)
     t0 = time.perf_counter()
     model.init(torch.Generator(device=device).manual_seed(0))

@@ -1,12 +1,13 @@
-"""Model stack: the dense decoder family of the 10 assigned architectures.
+"""Model stack: the 10 assigned architectures in six families.
 
 :func:`build_model` gives a :class:`Model` on the card unless the caller
 passes ``device="cpu"``; :func:`params_from_numpy` carries the JAX
-package's parameter tree over.  Attention and the primitives are plain
-functions on tensors (:mod:`.attention`, :mod:`.base`).
+package's parameter tree over.  Attention, the MoE dispatch, the SSD
+scan and the primitives are plain functions on tensors (:mod:`.attention`,
+:mod:`.moe`, :mod:`.ssm`, :mod:`.base`).
 """
-from . import attention, base, transformer
+from . import attention, base, encoder, hybrid, moe, ssm, transformer, vlm
 from .api import Model, build_model, params_from_numpy
 
-__all__ = ["attention", "base", "transformer", "Model", "build_model",
-           "params_from_numpy"]
+__all__ = ["attention", "base", "encoder", "hybrid", "moe", "ssm",
+           "transformer", "vlm", "Model", "build_model", "params_from_numpy"]

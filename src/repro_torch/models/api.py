@@ -5,12 +5,21 @@
   caches, logits = model.prefill({"tokens": tokens}, s_cap)
   caches, logits = model.decode_step(caches, token, pos)
 
-The parameters live in the module under the JAX package's leaf names
-(``embed``, ``final_norm``, ``unembed``, and a layer's ``attn.{norm, wq,
-wk, wv, wo, q_norm, k_norm}`` and ``mlp.{norm, w_gate, w_up, w_down}``),
-one submodule a layer in the order the stack runs.  They are for
-serving: no gradient is kept.  The dense family is ported; the others
-raise ``NotImplementedError`` naming their ROADMAP item.
+Families: dense | moe (:mod:`.transformer`, :mod:`.moe`), ssm | hybrid
+(:mod:`.hybrid`, :mod:`.ssm`), encoder (:mod:`.encoder`: ``prefill``
+takes ``{"frames"}`` and returns ``(None, logits (B, T, V))``), vlm
+(:mod:`.vlm`: ``{"image_embeds", "tokens"}``).
+
+The parameters live in the module under the JAX package's leaf names:
+the template's top-level leaves (``embed``, ``final_norm``, ``unembed``,
+``vis_proj``, ``frame_proj``, ``mask_embed``, ``lm_head``), ``layers``
+(one submodule a layer in the order the stack runs: attention layers,
+or a hybrid's Mamba layers) and a hybrid's one ``shared_attn`` block.
+Only the layer and group scan axes are unstacked: an MoE layer's experts
+stay one ``(E, d, f)`` parameter.  A leaf keeps its template's dtype
+(the MoE ``router`` and the SSM's ``dt_bias``, ``A_log`` and ``D`` are
+float32).  They are for serving: no gradient is kept, and
+``train_loss`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,16 +27,67 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import base, transformer as tfm
+from . import base, encoder, hybrid, ssm, transformer as tfm, vlm
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-
-_NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1: "
-               "models/{{moe,ssm,hybrid,encoder,vlm}})")
 
 
 def _gemma_like(cfg: ArchConfig) -> bool:
     return cfg.local_per_global is not None or cfg.final_logit_cap is not None
+
+
+def template(cfg: ArchConfig) -> dict:
+    """The JAX package's template tree of ``cfg`` (scan axes stacked)."""
+    f = cfg.family
+    if f in ("dense", "moe"):
+        return tfm.lm_templates(cfg)
+    if f in ("ssm", "hybrid"):
+        return hybrid.hybrid_templates(cfg)
+    if f == "encoder":
+        return encoder.encoder_templates(cfg)
+    if f == "vlm":
+        return vlm.vlm_templates(cfg)
+    raise ValueError(f)
+
+
+def _layer_sources(cfg: ArchConfig) -> list:
+    """(subtree path, index) in the reference's tree of every layer of
+    the stack, in the order it runs."""
+    if cfg.family in ("ssm", "hybrid"):
+        every, n_groups, n_tail = hybrid.pattern(cfg)
+        return [(("groups", "mamba"), (g, i)) for g in range(n_groups)
+                for i in range(every)] + \
+            [(("tail",), (i,)) for i in range(n_tail)]
+    if cfg.family == "encoder":
+        return [(("layers",), (i,)) for i in range(cfg.n_layers)]
+    k_local, has_global, n_groups, n_tail = tfm.group_pattern(cfg)
+    out = []
+    for g in range(n_groups):
+        out += [(("groups", "local"), (g, i)) for i in range(k_local)]
+        if has_global:
+            out.append((("groups", "global"), (g,)))
+    return out + [(("tail",), (i,)) for i in range(n_tail)]
+
+
+def _layer_template(cfg: ArchConfig) -> dict:
+    if cfg.family in ("ssm", "hybrid"):
+        return ssm.ssm_template(cfg)
+    return tfm.layer_template(cfg)
+
+
+def param_layout(cfg: ArchConfig) -> list:
+    """``(state-dict name, path in the reference's tree, index into that
+    leaf, Param)`` of every parameter of :class:`Model`."""
+    tpl = template(cfg)
+    out = [(k, (k,), (), p) for k, p in tpl.items() if base.is_param(p)]
+    layer = _layer_template(cfg)
+    for n, (path, idx) in enumerate(_layer_sources(cfg)):
+        out += [(".".join(("layers", str(n)) + sub), path + sub, idx, p)
+                for sub, p in base.leaves(layer)]
+    if "shared_attn" in tpl:
+        out += [(".".join(("shared_attn",) + sub), ("shared_attn",) + sub,
+                 (), p) for sub, p in base.leaves(tpl["shared_attn"])]
+    return out
 
 
 class _Block(nn.Module):
@@ -54,31 +114,38 @@ class _Layer(_Block):
 
 
 class Model(_Block):
-    """A dense decoder on ``device`` (uninitialised until :meth:`init` or
-    ``load_state_dict``)."""
+    """A model of ``cfg`` on ``device`` (uninitialised until :meth:`init`
+    or ``load_state_dict``)."""
 
     def __init__(self, cfg: ArchConfig, device):
-        if cfg.family != "dense":
-            raise NotImplementedError(_NOT_PORTED.format(
-                f"the {cfg.family} family"))
-        tpl = tfm.lm_templates(cfg)
-        super().__init__({k: tpl[k] for k in ("embed", "final_norm",
-                                              "unembed") if k in tpl},
+        tpl = template(cfg)
+        super().__init__({k: p for k, p in tpl.items() if base.is_param(p)},
                          device)
         self.cfg = cfg
         self.device = device
-        self.layers = nn.ModuleList(
-            _Layer(cfg, kind, device) for kind in tfm.layer_kinds(cfg))
+        if cfg.family in ("ssm", "hybrid"):
+            self.layers = nn.ModuleList(
+                _Block(ssm.ssm_template(cfg), device)
+                for _ in _layer_sources(cfg))
+            if "shared_attn" in tpl:
+                self.shared_attn = _Layer(cfg, "global", device)
+        elif cfg.family == "encoder":
+            self.layers = nn.ModuleList(
+                _Layer(cfg, "global", device) for _ in range(cfg.n_layers))
+        else:
+            self.layers = nn.ModuleList(
+                _Layer(cfg, kind, device) for kind in tfm.layer_kinds(cfg))
 
     # ---------------- params ----------------
     def template(self):
-        """The JAX package's template tree (groups and tail stacked)."""
-        return tfm.lm_templates(self.cfg)
+        """The JAX package's template tree (scan axes stacked)."""
+        return template(self.cfg)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Seeded random init with the reference's initializers, drawn
-        from ``generator`` (which must lie on the model's device)."""
+        from ``generator`` (which must lie on the model's device), one
+        parameter at a time."""
         for block in self.modules():
             for name, spec in getattr(block, "specs", {}).items():
                 base.initialize_(getattr(block, name), spec, generator)
@@ -87,24 +154,64 @@ class Model(_Block):
     def param_count(self) -> int:
         return base.param_count(self.template())
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed experts count top_k/E)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.family != "moe" or not cfg.n_experts:
+            return total
+        expert_p = 3 * cfg.d_model * cfg.d_ff_expert * cfg.n_experts \
+            * cfg.n_layers
+        active = expert_p * cfg.top_k / cfg.n_experts
+        return int(total - expert_p + active)
+
     # ---------------- steps ----------------
     @torch.no_grad()
     def prefill(self, batch, s_cap=None):
-        """``batch["tokens"]`` (B, S) -> (caches, last logits (B, V))."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        return tfm.lm_prefill(self, tokens, self.cfg, s_cap,
-                              embed_scale=_gemma_like(self.cfg))
+        """``batch["tokens"]`` (B, S) -> (caches, last logits (B, V));
+        the encoder takes ``batch["frames"]`` and returns (None, logits
+        (B, T, V)); the VLM takes ``image_embeds`` and ``tokens``."""
+        f, cfg = self.cfg.family, self.cfg
+
+        def arg(name):
+            return torch.as_tensor(batch[name], device=self.device)
+        if f in ("dense", "moe"):
+            return tfm.lm_prefill(self, arg("tokens"), cfg, s_cap,
+                                  embed_scale=_gemma_like(cfg))
+        if f in ("ssm", "hybrid"):
+            return hybrid.lm_prefill(self, arg("tokens"), cfg, s_cap)
+        if f == "encoder":
+            return None, encoder.encoder_forward(self, arg("frames"), cfg)
+        return vlm.vlm_prefill(self, arg("image_embeds"), arg("tokens"), cfg,
+                               s_cap)
 
     @torch.no_grad()
     def decode_step(self, caches, token, pos):
         """token, pos: (B,) ints.  Returns (caches, logits (B, V)); the
         caches are updated in place."""
-        return tfm.lm_decode_step(self, caches, token, pos, self.cfg,
-                                  embed_scale=_gemma_like(self.cfg))
+        f, cfg = self.cfg.family, self.cfg
+        if f in ("dense", "moe"):
+            return tfm.lm_decode_step(self, caches, token, pos, cfg,
+                                      embed_scale=_gemma_like(cfg))
+        if f in ("ssm", "hybrid"):
+            return hybrid.lm_decode_step(self, caches, token, pos, cfg)
+        if f == "vlm":
+            return vlm.vlm_decode_step(self, caches, token, pos, cfg)
+        raise ValueError(f"{f} has no decode step")
 
     def cache_spec(self, batch: int, s_cap: int) -> list:
-        """One ``{name: TensorSpec}`` a layer, in layer order."""
-        return tfm.lm_cache_spec(self.cfg, batch, s_cap)
+        """One ``{name: TensorSpec}`` a layer (a hybrid's: an
+        application), in the order the stack runs."""
+        f = self.cfg.family
+        if f in ("dense", "moe", "vlm"):
+            return tfm.lm_cache_spec(self.cfg, batch, s_cap)
+        if f in ("ssm", "hybrid"):
+            return hybrid.hybrid_cache_spec(self.cfg, batch, s_cap)
+        raise ValueError(f"{f} has no cache")
+
+    def init_cache(self, batch: int, s_cap: int) -> list:
+        """Zeroed caches of :meth:`cache_spec` on the model's device."""
+        return tfm.init_cache(self.cache_spec(batch, s_cap), self.device)
 
     def train_loss(self, *args, **kwargs):
         raise NotImplementedError(
@@ -117,40 +224,38 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     return Model(cfg, resolve_device(device))
 
 
-def _to_bf16(arr, device) -> torch.Tensor:
+def _leaf(arr, dtype, device) -> torch.Tensor:
+    """One leaf as ``dtype``: a float32 leaf from float32 (bit for bit),
+    a bf16 leaf from float32 (exact for bf16 values) or uint16 bits."""
     arr = np.asarray(arr)
-    if arr.dtype == np.uint16:          # bf16 bits
+    if dtype == torch.bfloat16 and arr.dtype == np.uint16:
         return torch.tensor(arr.view(np.int16)).view(torch.bfloat16).to(
             device)
     if arr.dtype != np.float32:
-        raise TypeError(f"expected float32 or uint16 (bf16 bits), got "
+        want = ("float32 or uint16 (bf16 bits)" if dtype == torch.bfloat16
+                else "float32")
+        raise TypeError(f"expected {want} for a {dtype} leaf, got "
                         f"{arr.dtype}")
-    return torch.tensor(arr, dtype=torch.bfloat16, device=device)
+    return torch.tensor(arr, dtype=dtype, device=device)
 
 
 def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> dict:
     """The JAX package's parameter tree, as numpy arrays -> a state dict
     of this package's :class:`Model` (``model.load_state_dict(...)``).
 
-    Leaves are float32 (a bf16 value round-trips through float32
-    exactly) or uint16 bit views of bf16.  The scan axes are unstacked:
-    ``groups/local[g, i]``, ``groups/global[g]`` and ``tail[i]`` become
-    the layers in the order the stack runs.
+    A leaf keeps its template's dtype: float32 leaves come as float32
+    and stay so; bf16 leaves come as float32 (a bf16 value round-trips
+    through float32 exactly) or as uint16 bit views of bf16.  The scan
+    axes are unstacked into the layers in the order the stack runs:
+    ``groups/local[g, i]``, ``groups/global[g]`` and ``tail[i]``
+    (dense, moe, vlm), ``groups/mamba[g, i]`` and ``tail[i]`` beside the
+    one ``shared_attn`` (ssm, hybrid), ``layers[i]`` (encoder).
     """
     device = resolve_device(device)
-    k_local, has_global, n_groups, n_tail = tfm.group_pattern(cfg)
-    out = {k: _to_bf16(tree[k], device)
-           for k in ("embed", "final_norm", "unembed") if k in tree}
-    layers = []
-    for g in range(n_groups):
-        for i in range(k_local):
-            layers.append((tree["groups"]["local"], (g, i)))
-        if has_global:
-            layers.append((tree["groups"]["global"], (g,)))
-    layers += [(tree["tail"], (i,)) for i in range(n_tail)]
-    for n, (sub, idx) in enumerate(layers):
-        for path, arr in base.leaves(sub):
-            out[".".join(("layers", str(n)) + path)] = \
-                _to_bf16(arr[idx], device)
+    out = {}
+    for name, path, idx, p in param_layout(cfg):
+        arr = tree
+        for key in path:
+            arr = arr[key]
+        out[name] = _leaf(arr[idx] if idx else arr, p.dtype, device)
     return out
-

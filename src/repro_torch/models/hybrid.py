@@ -1,0 +1,106 @@
+"""SSM and hybrid LMs: mamba2 (pure SSD stack) and zamba2 (Mamba2 +
+shared attention blocks), as the JAX package's ``models/hybrid.py``.
+
+zamba2 re-uses ONE transformer block (attention + MLP) every
+``shared_attn_every`` Mamba layers; each *application* still has its own
+KV cache.  mamba2 is the ``shared_attn_every == 0`` case (no attention).
+
+The model holds the Mamba layers in the order the stack runs (each
+group's ``every`` layers, then the tail's) and the one ``shared_attn``
+block.  Caches are one batch-first dict per application, in the same
+order: each group's shared-attention cache, then its Mamba caches, then
+the tail's.  No embedding scale and no final softcap, as the reference.
+"""
+from __future__ import annotations
+
+import itertools
+
+import torch
+
+from . import base
+from . import transformer as tfm
+from .base import Param
+from .ssm import ssm_apply, ssm_cache_spec, ssm_template
+from ..configs.base import ArchConfig
+
+
+def pattern(cfg: ArchConfig):
+    """(every, n_groups, n_tail) of the Mamba stack."""
+    every = cfg.shared_attn_every
+    if every:
+        return every, cfg.n_layers // every, cfg.n_layers % every
+    return 1, cfg.n_layers, 0
+
+
+def hybrid_templates(cfg: ArchConfig) -> dict:
+    """The reference's template tree: groups and tail stacked."""
+    every, n_groups, n_tail = pattern(cfg)
+    group = {"mamba": base.stack(ssm_template(cfg), every)}
+    tpl = {
+        "embed": Param((cfg.padded_vocab, cfg.d_model), ("model", "fsdp")),
+        "final_norm": Param((cfg.d_model,), (None,), init="zeros"),
+        "groups": base.stack(group, n_groups, "layers"),
+    }
+    if n_tail:
+        tpl["tail"] = base.stack(ssm_template(cfg), n_tail, "layers")
+    if cfg.shared_attn_every:
+        tpl["shared_attn"] = tfm.layer_template(cfg)   # ONE copy, reused
+    if not cfg.tie_embeddings:
+        tpl["unembed"] = Param((cfg.d_model, cfg.padded_vocab),
+                               ("fsdp", "model"))
+    return tpl
+
+
+def hybrid_cache_spec(cfg: ArchConfig, batch: int, s_cap: int) -> list:
+    """One ``{name: TensorSpec}`` per application, in the order the stack
+    runs."""
+    every, n_groups, n_tail = pattern(cfg)
+    group = [ssm_cache_spec(cfg, batch)] * every
+    if cfg.shared_attn_every:
+        group = [tfm.attn_cache_spec(cfg, batch, s_cap, "global")] + group
+    return group * n_groups + [ssm_cache_spec(cfg, batch)] * n_tail
+
+
+def stack_apply(model, x, cfg: ArchConfig, mode: str, caches=None,
+                positions=None, pos=None):
+    """Each group's shared block, then its Mamba layers; then the tail.
+    Fills ``caches`` in place."""
+    every, n_groups, n_tail = pattern(cfg)
+    apps = iter(caches) if caches is not None else itertools.repeat(None)
+    layers = iter(model.layers)
+    for _ in range(n_groups):
+        if cfg.shared_attn_every:
+            x, _ = tfm.layer_apply(model.shared_attn, x, cfg, mode,
+                                   cache=next(apps),
+                                   positions=positions, pos=pos)
+        for _ in range(every):
+            x = ssm_apply(next(layers), x, cfg, mode,
+                          cache=next(apps))
+    for _ in range(n_tail):
+        x = ssm_apply(next(layers), x, cfg, mode,
+                      cache=next(apps))
+    return x
+
+
+def lm_prefill(model, tokens, cfg: ArchConfig, s_cap=None):
+    """Returns (caches, last_token_logits)."""
+    b, s = tokens.shape
+    s_cap = s_cap or cfg.max_seq
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    caches = tfm.init_cache(hybrid_cache_spec(cfg, b, s_cap), tokens.device)
+    x = tfm.embed_tokens(model, tokens, cfg, False)
+    x = stack_apply(model, x, cfg, "prefill", caches=caches,
+                    positions=positions)
+    x = base.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
+    logits = base.matmul(x, tfm.unembed_matrix(model, cfg))
+    return caches, logits[:, 0]
+
+
+def lm_decode_step(model, caches, token, pos, cfg: ArchConfig):
+    """token, pos: (B,) ints.  Returns (caches, logits (B, V)); the
+    caches are updated in place."""
+    x = tfm.embed_tokens(model, token[:, None], cfg, False)
+    x = stack_apply(model, x, cfg, "decode", caches=caches, pos=pos)
+    x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = base.matmul(x, tfm.unembed_matrix(model, cfg))
+    return caches, logits[:, 0]

@@ -1,0 +1,187 @@
+"""Mamba2 blocks via the SSD (state-space duality) chunked algorithm.
+
+The JAX package's ``models/ssm.py`` in plain PyTorch (Dao & Gu 2024,
+arXiv:2405.21060): within chunks of length Q the recurrence is a masked
+quadratic form; across chunks a loop carries the (H, N, P) state.  All
+decay and cumsum math runs in float32, and every exponent that reaches a
+result is <= 0.
+
+The reference's rounding points stay: the intra-chunk product takes the
+weights rounded to bf16 against bf16 inputs and keeps the float32 sum
+(``preferred_element_type``), so here both operands are rounded and
+multiplied in float32.  Prefill convolves with a loop of float32 tap
+adds; decode takes one float32 contraction over the window.
+
+Decode is the O(1) recurrent step on a carried (state, conv window)
+cache, written in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import base
+from .base import Param
+from .transformer import TensorSpec
+from ..configs.base import ArchConfig
+
+
+def ssm_template(cfg: ArchConfig) -> dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    conv_ch = di + 2 * n
+    proj_out = 2 * di + 2 * n + h          # z, x, B, C, dt
+    return {
+        "norm": Param((d,), (None,), init="zeros"),
+        "in_proj": Param((d, proj_out), ("fsdp", "model")),
+        "conv_w": Param((cfg.ssm_conv_width, conv_ch), (None, "model"),
+                        scale=0.1),
+        "conv_b": Param((conv_ch,), ("model",), init="zeros"),
+        "dt_bias": Param((h,), (None,), dtype=torch.float32, init="zeros"),
+        "A_log": Param((h,), (None,), dtype=torch.float32, init="zeros"),
+        "D": Param((h,), (None,), dtype=torch.float32, init="ones"),
+        "gate_norm": Param((di,), (None,), init="zeros"),
+        "out_proj": Param((di, d), ("model", "fsdp"), init="scaled"),
+    }
+
+
+def ssm_cache_spec(cfg: ArchConfig, batch: int) -> dict:
+    di, n, h, pdim = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                      cfg.ssm_head_dim)
+    conv_ch = di + 2 * n
+    return {
+        "conv": TensorSpec((batch, cfg.ssm_conv_width - 1, conv_ch),
+                           torch.bfloat16),
+        "state": TensorSpec((batch, h, n, pdim), torch.float32),
+    }
+
+
+def _split_proj(zxbcdt, cfg: ArchConfig):
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:2 * di + 2 * n]
+    dt_raw = zxbcdt[..., -h:]
+    return z, xbc, dt_raw
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _causal_conv(xbc, w, b):
+    """Depthwise causal conv via shifted adds. xbc: (B, S, CH)."""
+    kw = w.shape[0]
+    pad = F.pad(xbc, (0, 0, kw - 1, 0))
+    s = xbc.shape[1]
+    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
+    for k in range(kw):
+        out = out + pad[:, k:k + s].to(torch.float32) \
+            * w[k].to(torch.float32)
+    out = out + b.to(torch.float32)
+    return F.silu(out).to(xbc.dtype)
+
+
+def _gated_out(p, y, z, u, cfg: ArchConfig):
+    y = base.rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype),
+                      p.gate_norm, cfg.norm_eps)
+    return u + base.matmul(y, p.out_proj)
+
+
+def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
+    """Returns ``u + mamba2(u)``; with a ``cache`` (prefill or decode) it
+    is written in place: the last ``kw - 1`` pre-conv rows and the final
+    state.  u: (B, S, D); a prefill needs S >= kw - 1."""
+    if mode == "decode":
+        return _ssm_decode(p, u, cfg, cache)
+
+    b, s_orig, _ = u.shape
+    di, n, h, pdim = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                      cfg.ssm_head_dim)
+    q = cfg.ssm_chunk
+    f32 = torch.float32
+
+    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
+    z, xbc_pre, dt_raw = _split_proj(base.matmul(xn, p.in_proj), cfg)
+    xbc = _causal_conv(xbc_pre, p.conv_w, p.conv_b)
+    dt = _softplus(dt_raw.to(f32) + p.dt_bias)
+
+    # pad to a chunk multiple; padded steps get dt=0 => identity decay
+    # and zero state contribution (exact for any length)
+    s = -(-s_orig // q) * q
+    if s != s_orig:
+        xbc = F.pad(xbc, (0, 0, 0, s - s_orig))
+        dt = F.pad(dt, (0, 0, 0, s - s_orig))
+    nc = s // q
+
+    xc = xbc[..., :di].reshape(b, nc, q, h, pdim)
+    bc = xbc[..., di:di + n].reshape(b, nc, q, n).to(f32)      # G = 1
+    cc = xbc[..., di + n:].reshape(b, nc, q, n).to(f32)
+    dtc = dt.reshape(b, nc, q, h)
+    a = -torch.exp(p.A_log)                                     # (H,) < 0
+    cum = torch.cumsum(dtc * a, dim=2)                          # (B,nc,q,H)
+
+    # ---- intra-chunk (quadratic) ----
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)                # (B,nc,q,q)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,nc,i,j,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=u.device))
+    lmat = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    w = cb[..., None] * lmat * dtc[:, :, None, :, :]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp",
+                          w.to(xc.dtype).to(f32), xc.to(f32))
+
+    # ---- chunk states + inter-chunk recurrence ----
+    decay_out = torch.exp(cum[:, :, -1:, :] - cum)              # (B,nc,q,H)
+    states = torch.einsum("bcln,bclhp->bchnp", bc,
+                          (decay_out * dtc)[..., None] * xc.to(f32))
+    chunk_decay = torch.exp(cum[:, :, -1, :])                   # (B,nc,H)
+    state = torch.zeros((b, h, n, pdim), dtype=f32, device=u.device)
+    prev = []                  # the state before each chunk
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    states_prev = torch.stack(prev, dim=1)                      # (B,nc,H,N,P)
+
+    y_off = torch.einsum("bcin,bchnp->bcihp", cc, states_prev) \
+        * torch.exp(cum)[..., None]
+    y = (y_diag + y_off) + p.D[None, None, None, :, None] * xc.to(f32)
+    y = y.reshape(b, s, di)[:, :s_orig].to(u.dtype)
+    out = _gated_out(p, y, z, u, cfg)
+
+    if cache is not None:
+        kw = cfg.ssm_conv_width
+        if s_orig < kw - 1:
+            raise ValueError(f"a prefill needs at least {kw - 1} tokens "
+                             f"(the conv window), got {s_orig}")
+        cache["conv"].copy_(xbc_pre[:, s_orig - (kw - 1):s_orig])
+        cache["state"].copy_(state)
+    return out
+
+
+def _ssm_decode(p, u, cfg: ArchConfig, cache):
+    """One-token recurrent step. u: (B, 1, D); ``cache`` in place."""
+    b = u.shape[0]
+    di, n, h, pdim = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                      cfg.ssm_head_dim)
+    f32 = torch.float32
+    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
+    z, xbc_pre, dt_raw = _split_proj(base.matmul(xn, p.in_proj), cfg)
+
+    window = torch.cat([cache["conv"].to(xbc_pre.dtype), xbc_pre], dim=1)
+    xbc = torch.einsum("bkc,kc->bc", window.to(f32), p.conv_w.to(f32)) \
+        + p.conv_b.to(f32)
+    xbc = F.silu(xbc).to(u.dtype)                               # (B, CH)
+
+    xh = xbc[:, :di].reshape(b, h, pdim).to(f32)
+    bm = xbc[:, di:di + n].to(f32)
+    cm = xbc[:, di + n:].to(f32)
+    dt = _softplus(dt_raw[:, 0].to(f32) + p.dt_bias)
+    da = torch.exp(dt * -torch.exp(p.A_log))                    # (B, H)
+
+    state = cache["state"] * da[..., None, None] \
+        + bm[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]
+    y = torch.einsum("bn,bhnp->bhp", cm, state) + p.D[None, :, None] * xh
+    y = y.reshape(b, 1, di).to(u.dtype)
+    cache["conv"].copy_(window[:, 1:])
+    cache["state"].copy_(state)
+    return _gated_out(p, y, z, u, cfg)

@@ -1,9 +1,12 @@
-"""Decoder-only transformer, dense family (gemma-style local/global too).
+"""Decoder-only transformer: dense, gemma-style local/global, MoE.
 
 The JAX package scans its layer stack over pattern groups (e.g. gemma3's
 5 local + 1 global); here the stack is a Python loop over the layers in
 the same order (:func:`layer_kinds`).  Templates keep the reference's
-shapes and leaf names; caches are one dict a layer, in layer order.
+shapes and leaf names; caches are one dict a layer, in layer order.  An
+MoE layer's MLP is :func:`repro_torch.models.moe.moe_apply`, whose
+router z-loss the stack sums as the reference's ``aux`` (serving does
+not use it).
 
 Modes:
   prefill  -- full-sequence forward, returns KV caches + last logits
@@ -83,11 +86,13 @@ def mlp_template(cfg: ArchConfig) -> dict:
 
 
 def layer_template(cfg: ArchConfig) -> dict:
+    from . import moe
+    t = {"attn": attn_template(cfg)}
     if cfg.family == "moe":
-        raise NotImplementedError(
-            "moe layers are not ported yet (ROADMAP queue 1: "
-            "models/{moe,ssm,hybrid,encoder,vlm})")
-    return {"attn": attn_template(cfg), "mlp": mlp_template(cfg)}
+        t["moe"] = moe.moe_template(cfg)
+    else:
+        t["mlp"] = mlp_template(cfg)
+    return t
 
 
 def lm_templates(cfg: ArchConfig) -> dict:
@@ -199,9 +204,11 @@ def _prefill_write(cache, kind, k, v, int8: bool):
 
 
 def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
-               positions=None, pos=None, cache=None):
+               positions=None, pos=None, cache=None, prefix_len=None,
+               mask_override=None):
     """Returns ``x + attention(x)``; fills ``cache`` in place (keys are
-    roped before caching)."""
+    roped before caching).  A global layer takes the prefix-LM mask when
+    ``prefix_len`` is set; ``mask_override`` replaces the mask kind."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = layer_theta(cfg, kind)
@@ -230,9 +237,13 @@ def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
     else:
         q = base.rope(q, positions.to(torch.float32), theta)
         k = base.rope(k, positions.to(torch.float32), theta)
+        mask_kind = ("local" if kind == "local"
+                     else ("prefix" if prefix_len is not None else "causal"))
+        if mask_override is not None:
+            mask_kind = mask_override
         o = flash_attention(
-            q, k, v, mask_kind="local" if kind == "local" else "causal",
-            window=cfg.window, logit_cap=cfg.attn_logit_cap,
+            q, k, v, mask_kind=mask_kind, window=cfg.window,
+            prefix_len=prefix_len, logit_cap=cfg.attn_logit_cap,
             q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
             schedule=cfg.attn_schedule)
         if cache is not None:
@@ -246,16 +257,23 @@ def mlp_apply(p, x, cfg: ArchConfig):
 
 
 def layer_apply(layer, x, cfg: ArchConfig, mode: str, **kw):
+    """Returns (x, aux): aux is an MoE layer's router z-loss, else 0."""
+    from . import moe
     x = attn_apply(layer.attn, x, cfg, layer.kind, mode, **kw)
-    return mlp_apply(layer.mlp, x, cfg)
+    if cfg.family == "moe":
+        return moe.moe_apply(layer.moe, x, cfg, decode=(mode == "decode"))
+    return mlp_apply(layer.mlp, x, cfg), 0.0
 
 
 def stack_apply(layers, x, cfg: ArchConfig, mode: str, caches=None, **kw):
-    """Run the layer stack in order; fills ``caches`` in place."""
+    """Run the layer stack in order; fills ``caches`` in place.  Returns
+    (x, summed aux)."""
+    aux = 0.0
     for i, layer in enumerate(layers):
-        x = layer_apply(layer, x, cfg, mode,
-                        cache=None if caches is None else caches[i], **kw)
-    return x
+        x, a = layer_apply(layer, x, cfg, mode,
+                           cache=None if caches is None else caches[i], **kw)
+        aux = aux + a
+    return x, aux
 
 
 # ------------------------------------------------------------------ LM API
@@ -275,15 +293,15 @@ def unembed_matrix(model, cfg: ArchConfig):
 
 
 def lm_prefill(model, tokens, cfg: ArchConfig, s_cap=None,
-               embed_scale: bool = False):
+               embed_scale: bool = False, prefix_len=None):
     """Returns (caches, last_token_logits)."""
     b, s = tokens.shape
     s_cap = s_cap or cfg.max_seq
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     caches = init_cache(lm_cache_spec(cfg, b, s_cap), tokens.device)
     x = embed_tokens(model, tokens, cfg, embed_scale)
-    x = stack_apply(model.layers, x, cfg, "prefill", caches=caches,
-                    positions=positions)
+    x, _ = stack_apply(model.layers, x, cfg, "prefill", caches=caches,
+                       positions=positions, prefix_len=prefix_len)
     x = base.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
     logits = base.softcap(base.matmul(x, unembed_matrix(model, cfg)),
                           cfg.final_logit_cap)
@@ -295,7 +313,8 @@ def lm_decode_step(model, caches, token, pos, cfg: ArchConfig,
     """token: (B,) int, pos: (B,) int.  Returns (caches, logits (B, V));
     ``caches`` is updated in place and returned."""
     x = embed_tokens(model, token[:, None], cfg, embed_scale)
-    x = stack_apply(model.layers, x, cfg, "decode", caches=caches, pos=pos)
+    x, _ = stack_apply(model.layers, x, cfg, "decode", caches=caches,
+                       pos=pos)
     x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = base.softcap(base.matmul(x, unembed_matrix(model, cfg)),
                           cfg.final_logit_cap)

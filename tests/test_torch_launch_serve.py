@@ -8,7 +8,9 @@ tokens equal the reference's up to the first step where the reference's
 top-2 logit margin is within twice the tolerance (a tie the two packages
 may break apart; the sequences diverge from there); until then each
 step's logits agree within the tolerance, max|d| / std(reference): 0.05
-dense, 0.1 gemma2, 0.25 with the int8 KV cache.
+dense, 0.1 gemma2, 0.25 with the int8 KV cache, and the reference's
+decode-consistency tolerances for the other token families (0.08 MoE,
+0.05 mamba2, 0.12 zamba2).
 """
 import dataclasses
 import math
@@ -33,19 +35,20 @@ from repro_torch.models import build_model, params_from_numpy
 from repro_torch.rng import random_tokens
 
 TOL = {"qwen3-32b": 0.05, "minitron-8b": 0.05, "gemma3-1b": 0.05,
-       "gemma2-9b": 0.1}
+       "gemma2-9b": 0.1, "dbrx-132b": 0.08, "llama4-scout-17b-a16e": 0.08,
+       "mamba2-370m": 0.05, "zamba2-1.2b": 0.12}
 
 
 def ref_params(cfg, seed=0):
     """Uniform numpy draws with the initializers' standard deviations,
-    rounded to bf16; norm scales nonzero."""
+    in each leaf's dtype (bf16, or float32); norm scales nonzero."""
     rng = np.random.default_rng(seed)
 
     def one(p):
         x = (rng.random(p.shape, dtype=np.float32) - 0.5) * math.sqrt(12.0)
         std = 0.1 if p.init == "zeros" else 1 / math.sqrt(
             p.shape[-2]) if p.init == "scaled" else p.scale
-        return jnp.asarray(x * std, jnp.bfloat16)
+        return jnp.asarray(x * std, p.dtype)
     return jax.tree_util.tree_map(one, r_build(cfg).template(),
                                   is_leaf=RB.is_param)
 
@@ -164,6 +167,12 @@ def check_tokens(ref, port, tol):
     ("gemma3-1b", 3, 2, 72, 6, "bf16"),     # prompt past the 64 window
     ("gemma2-9b", 3, 2, 8, 6, "bf16"),
     ("qwen3-32b", 3, 2, 8, 6, "int8"),
+    # 2 x 16 tokens > 4 x 4 experts: the first burst's prefill takes
+    # expert choice, the third request's (16 tokens) token choice
+    ("dbrx-132b", 3, 2, 16, 6, "bf16"),
+    ("llama4-scout-17b-a16e", 3, 2, 16, 6, "bf16"),
+    ("mamba2-370m", 3, 2, 40, 6, "bf16"),   # past one 32-token chunk
+    ("zamba2-1.2b", 3, 2, 40, 6, "bf16"),
 ])
 def test_engine_matches_reference(arch, n_req, slots, prompt_len, max_new,
                                   kv):
@@ -224,6 +233,15 @@ def test_main_serves_and_replays_like_the_reference(monkeypatch, capsys):
             for i in rep.instances] == \
         [(dataclasses.asdict(i.config), i.n_ops, i.busy_cycles)
          for i in want.instances]
+
+
+@pytest.mark.parametrize("arch,needs", [
+    ("hubert-xlarge", "frames and has no decode step"),
+    ("paligemma-3b", "image embeddings")])
+def test_main_refuses_the_families_it_cannot_feed(arch, needs):
+    with pytest.raises(ValueError, match=needs) as err:
+        TS.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    assert "dense, moe, ssm, hybrid" in str(err.value)
 
 
 def test_engine_refuses_more_requests_than_free_slots():

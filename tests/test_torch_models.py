@@ -8,8 +8,9 @@ against the reference and a naive softmax in float32 (2e-4, as
 ``tests/test_attention.py``); logits as max|d| / std(reference logits),
 0.05 dense, 0.1 gemma2 (one bf16 ulp at its logit scale reads as 6% of
 std), 0.25 with the int8 KV cache (``tests/test_decode_consistency.py``).
-Both packages get the same parameters: numpy normals rounded to bf16,
-carried over by ``params_from_numpy``.
+Both packages get the same parameters: numpy draws in each leaf's dtype
+(bf16, or float32 for the MoE router and the SSM's ``dt_bias``,
+``A_log`` and ``D``), carried over by ``params_from_numpy``.
 """
 import dataclasses
 import math
@@ -28,6 +29,7 @@ from repro.models import transformer as RT
 from repro_torch import configs as TCFG
 from repro_torch.models import attention as TA
 from repro_torch.models import base as TB
+from repro_torch.models import api as TAPI
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models import transformer as TT
 
@@ -41,10 +43,10 @@ P0, STEPS, B, S_CAP = 64, 3, 2, 128
 # ------------------------------------------------------------- helpers
 
 def ref_params(cfg, seed=0):
-    """The reference's parameter tree of ``cfg`` filled from numpy (bf16
-    values): uniform draws with the initializers' standard deviations
-    (quicker than normal ones at full width); norm scales are nonzero so
-    ``1 + scale`` is exercised."""
+    """The reference's parameter tree of ``cfg`` filled from numpy in
+    each leaf's dtype: uniform draws with the initializers' standard
+    deviations (quicker than normal ones at full width); norm scales are
+    nonzero so ``1 + scale`` is exercised."""
     rng = np.random.default_rng(seed)
 
     def one(p):
@@ -57,17 +59,19 @@ def ref_params(cfg, seed=0):
             x /= math.sqrt(p.shape[-2])
         else:
             x *= p.scale
-        return jnp.asarray(x, jnp.bfloat16)
+        return jnp.asarray(x, p.dtype)
     return jax.tree_util.tree_map(one, r_build(cfg).template(),
                                   is_leaf=RB.is_param)
 
 
 def as_numpy(tree, bits=False):
-    """bf16 JAX tree -> numpy float32 (or uint16 bit views)."""
-    if bits:
-        return jax.tree_util.tree_map(
-            lambda a: np.asarray(a).view(np.uint16), tree)
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+    """JAX tree -> numpy float32 (bf16 leaves as uint16 bit views with
+    ``bits``)."""
+    def one(a):
+        if bits and a.dtype == jnp.bfloat16:
+            return np.asarray(a).view(np.uint16)
+        return np.asarray(a, np.float32)
+    return jax.tree_util.tree_map(one, tree)
 
 
 def port_model(arch, params, **overrides):
@@ -122,42 +126,53 @@ def test_shapes_and_skips_field_for_field():
 
 # ----------------------------------------------------------- templates
 
-def _template_leaves(tpl, is_leaf):
+DTYPES = {torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8,
+          torch.float32: jnp.float32}
+DTYPES_BACK = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _template_leaves(tpl, is_leaf, dtype=lambda d: d):
     out = {}
     for path, p in jax.tree_util.tree_flatten_with_path(
             tpl, is_leaf=is_leaf)[0]:
         out["/".join(k.key for k in path)] = (tuple(p.shape), p.logical,
-                                              p.init, p.scale)
+                                              p.init, p.scale,
+                                              dtype(p.dtype))
     return out
 
 
+FULL_COUNTS = {"gemma2-9b": 9_241_404_928,
+               "llama4-scout-17b-a16e": 107_771_827_200,
+               "mamba2-370m": 368_494_080}
+FLOAT32_LEAVES = {"router", "dt_bias", "A_log", "D"}
+
+
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", RCFG.ARCH_NAMES)
 def test_template_and_param_count(arch, smoke):
+    """Every leaf's shape, axes, initializer and dtype: float32 for the
+    MoE router and the SSM's dt_bias, A_log and D, bf16 elsewhere."""
     rcfg = RCFG.get_config(arch, smoke=smoke)
     tcfg = TCFG.get_config(arch, smoke=smoke)
     ref = r_build(rcfg)
     port = build_model(tcfg, device="cpu") if smoke else None
-    tpl = TT.lm_templates(tcfg)
-    assert _template_leaves(tpl, TB.is_param) == \
+    tpl = TAPI.template(tcfg)
+    assert _template_leaves(tpl, TB.is_param, DTYPES.get) == \
         _template_leaves(ref.template(), RB.is_param)
-    assert all(p.dtype == torch.bfloat16 for _, p in TB.leaves(tpl))
+    for path, p in TB.leaves(tpl):
+        assert p.dtype == (torch.float32 if path[-1] in FLOAT32_LEAVES
+                           else torch.bfloat16), path
     assert TB.param_count(tpl) == ref.param_count()
-    if arch == "gemma2-9b" and not smoke:
-        assert ref.param_count() == 9_241_404_928
+    if not smoke and arch in FULL_COUNTS:
+        assert ref.param_count() == FULL_COUNTS[arch]
     if port is not None:
         assert port.param_count() == ref.param_count()
+        assert port.active_param_count() == ref.active_param_count()
         assert sum(p.numel() for p in port.parameters()) == \
             ref.param_count()
-        assert all(p.dtype == torch.bfloat16 and not p.requires_grad
-                   for p in port.parameters())
-
-
-@pytest.mark.parametrize("arch", [a for a in RCFG.ARCH_NAMES
-                                  if a not in DENSE])
-def test_other_families_are_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(TCFG.get_config(arch, smoke=True), device="cpu")
+        want = {name: p.dtype for name, _, _, p in TAPI.param_layout(tcfg)}
+        assert {n: p.dtype for n, p in port.named_parameters()} == want
+        assert not any(p.requires_grad for p in port.parameters())
 
 
 def test_train_loss_is_not_ported():
@@ -207,6 +222,94 @@ def test_params_from_numpy_unstacks_in_layer_order():
     assert torch.equal(model.embed.float(), _t(params["embed"]))
 
 
+def _pick(path, idx=()):
+    def get(tree):
+        for key in path.split("/"):
+            tree = tree[key]
+        return tree[idx] if idx else tree
+    return get
+
+
+#: per family: state-dict name -> where the reference's tree holds it
+UNSTACKED = {
+    "dbrx-132b": {                      # 4 layers, all global
+        "layers.3.moe.router": _pick("groups/global/moe/router", (3,)),
+        "layers.1.moe.w_down": _pick("groups/global/moe/w_down", (1,)),
+        "layers.2.attn.wk": _pick("groups/global/attn/wk", (2,))},
+    "llama4-scout-17b-a16e": {
+        "layers.0.moe.router": _pick("groups/global/moe/router", (0,)),
+        "layers.2.moe.w_gate": _pick("groups/global/moe/w_gate", (2,)),
+        "layers.3.moe.shared.w_up": _pick("groups/global/moe/shared/w_up",
+                                          (3,))},
+    "mamba2-370m": {                    # 4 groups of 1 Mamba layer
+        "layers.2.A_log": _pick("groups/mamba/A_log", (2, 0)),
+        "layers.3.D": _pick("groups/mamba/D", (3, 0)),
+        "layers.1.in_proj": _pick("groups/mamba/in_proj", (1, 0)),
+        "embed": _pick("embed")},
+    "zamba2-1.2b": {                    # 2 groups of 2, tail of 1
+        "layers.1.dt_bias": _pick("groups/mamba/dt_bias", (0, 1)),
+        "layers.2.conv_w": _pick("groups/mamba/conv_w", (1, 0)),
+        "layers.4.A_log": _pick("tail/A_log", (0,)),
+        "shared_attn.attn.wq": _pick("shared_attn/attn/wq"),
+        "shared_attn.mlp.w_down": _pick("shared_attn/mlp/w_down")},
+    "hubert-xlarge": {
+        "layers.3.attn.wv": _pick("layers/attn/wv", (3,)),
+        "frame_proj": _pick("frame_proj"),
+        "mask_embed": _pick("mask_embed"),
+        "lm_head": _pick("lm_head")},
+    "paligemma-3b": {
+        "layers.1.mlp.w_gate": _pick("groups/global/mlp/w_gate", (1,)),
+        "vis_proj": _pick("vis_proj")},
+}
+
+
+@pytest.mark.parametrize("arch", list(UNSTACKED))
+def test_params_from_numpy_unstacks_every_family(arch):
+    """The unstacked order of each family, every leaf in its template's
+    dtype: float32 leaves bit for bit, bf16 ones from float32 or bits."""
+    rcfg = RCFG.get_config(arch, smoke=True)
+    tcfg = TCFG.get_config(arch, smoke=True)
+    params = ref_params(rcfg)
+    sd = params_from_numpy(tcfg, as_numpy(params), "cpu")
+    bits = params_from_numpy(tcfg, as_numpy(params, bits=True), "cpu")
+    for name, get in UNSTACKED[arch].items():
+        want = np.asarray(get(params))
+        assert sd[name].dtype == DTYPES_BACK[want.dtype.name], name
+        np.testing.assert_array_equal(sd[name].float().numpy(),
+                                      want.astype(np.float32))
+        assert torch.equal(bits[name], sd[name]), name
+        if want.dtype == np.float32:    # the same bits, not just values
+            np.testing.assert_array_equal(sd[name].numpy().view(np.uint32),
+                                          want.view(np.uint32))
+    model = build_model(tcfg, "cpu")
+    assert set(sd) == set(dict(model.named_parameters()))
+    model.load_state_dict(sd)
+    f32 = [n for n, p in model.named_parameters() if p.dtype == torch.float32]
+    assert len(f32) == {"moe": 4, "ssm": 12, "hybrid": 15}.get(
+        tcfg.family, 0), f32
+    if f32:                             # a float32 leaf takes no bf16 bits
+        tree = as_numpy(params)
+        *parents, key = _first_float32_path(params)
+        leaf = tree
+        for k in parents:
+            leaf = leaf[k]
+        leaf[key] = np.zeros(leaf[key].shape, np.uint16)
+        with pytest.raises(TypeError, match="float32"):
+            params_from_numpy(tcfg, tree, "cpu")
+
+
+
+def _first_float32_path(tree, prefix=()):
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            found = _first_float32_path(sub, prefix + (key,))
+            if found:
+                return found
+        elif sub.dtype == jnp.float32:
+            return prefix + (key,)
+    return None
+
+
 # ------------------------------------------------------------- caches
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
@@ -226,9 +329,7 @@ def test_cache_spec_shapes_and_dtypes(arch, kv_dtype):
     if n_tail:
         want += [{n: (s.shape[1:], s.dtype) for n, s in
                   ref["tail"].items()}] * n_tail
-    dtypes = {torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8,
-              torch.float32: jnp.float32}
-    got = [{n: (tuple(s.shape), dtypes[s.dtype]) for n, s in layer.items()}
+    got = [{n: (tuple(s.shape), DTYPES[s.dtype]) for n, s in layer.items()}
            for layer in build_model(tcfg, "cpu").cache_spec(3, 96)]
     assert got == want
 
