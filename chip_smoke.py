@@ -141,6 +141,27 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    cuts' expert-choice prefill and ``moe.combine`` bit-equal across two
    card calls; the SSM cuts' decode = prefill within the reference's
    tolerances (0.05, 0.12).  No kernel of phases 2-7 lies on this path.
+10. Training, through ``launch.train.main`` (``Model.train_loss``,
+   autograd, AdamW, the checkpoint manager, ``runtime.train``): (a) the
+   100m preset (qwen3 widths, 153.0 M parameters) for 60 steps of 8 x
+   256 pattern tokens; (b) gemma3-1b at full width and depth
+   (999,826,048 parameters) for 10 steps of 4 x 4,096 tokens (train_4k's
+   sequence past its 512-token window; reduced: global batch 256 -> 4),
+   remat on.  Each prints its step time (median of steps 4 on), tokens/s,
+   peak memory, the float64 kernels' share of one profiled step (the
+   attention's sums, ``torch.profiler``), the host-device syncs of one
+   step (``torch.cuda.set_sync_debug_mode``) and the step's operation
+   bound; gates: no skipped step, finite losses, the loss falls, the
+   profiler recorded device time, one sync a step.  (c) The seven
+   configs of ``tests/test_torch_train_loss.py`` at 2-layer cuts, widths
+   full: ``train_loss`` and every gradient leaf on the card against the
+   CPU with the same weights and batch, in bf16 and in float32, at the
+   CPU tests' tolerances.  (d) Exact accumulation over 2 microbatches in
+   both orders gives bit-equal parameters; a checkpoint saved on the card
+   restores bit for bit and resumes from its step: its losses, and the
+   parameters, moments and step of its last checkpoint, equal an
+   uninterrupted run's bit for bit.  No kernel of phases 2-7 lies on
+   this path.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -154,10 +175,13 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -200,6 +224,21 @@ SSM_PROMPT = 1000                  # 8 chunks of 128, the last padded
 #: the reference's decode-consistency tolerances (smoke size)
 SSM_TOL = {"mamba2-370m": 0.05, "zamba2-1.2b": 0.12}
 SSM_DRIFT_GATE = 0.5               # full depth: cache faults read 1-10x
+#: phase 10: the 100m preset's run through launch.train
+PRESET_ARGS = ["--arch", "qwen3-32b", "--preset", "100m", "--steps", "60",
+               "--seq-len", "256", "--global-batch", "8", "--source",
+               "pattern", "--no-resume"]
+#: gemma3-1b at train_4k's sequence; reduced: global batch 256 -> 4
+GEMMA3_TRAIN = {"seq": 4096, "batch": 4, "steps": 10}
+STEP_FROM = 4                      # step times: median of steps 4 on
+#: kernels that compute in float64 (cuBLAS DGEMM, aten's double
+#: elementwise and reduction kernels): in training only the attention's
+FP64_KERNEL = re.compile(r"double|f64|d884|dgemm", re.IGNORECASE)
+STEP_SYNCS = 1                     # the train step's one read of the card
+#: the CPU tests' tolerances (tests/test_torch_train_loss.py)
+TRAIN_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+TRAIN_F32_GRAD_RTOL = 1e-4
+TRAIN_BF16_GRAD_RTOL = 2e-2
 
 
 def check(cond, msg):
@@ -1684,30 +1723,6 @@ def peak_gib():
     return torch.cuda.max_memory_allocated() / 2**30
 
 
-def numpy_tree(model):
-    """``model``'s weights as the reference's stacked parameter tree of
-    numpy arrays (bf16 as uint16 bits), the input of
-    ``params_from_numpy``."""
-    from repro_torch.models import api
-    tpl = api.template(model.cfg)
-    sd = model.state_dict()
-    tree = {}
-    for name, path, idx, _ in api.param_layout(model.cfg):
-        t = sd[name].cpu()
-        arr = (t.view(torch.int16).numpy().view(np.uint16)
-               if t.dtype == torch.bfloat16 else t.numpy())
-        node, spec = tree, tpl
-        for key in path[:-1]:
-            node, spec = node.setdefault(key, {}), spec[key]
-        if not idx:
-            node[path[-1]] = arr
-            continue
-        if path[-1] not in node:
-            node[path[-1]] = np.empty(spec[path[-1]].shape, arr.dtype)
-        node[path[-1]][idx] = arr
-    return tree
-
-
 def step_figures(model, eng, label, bound_ms, smi, prefill_ms, plen):
     """Time ``eng``'s decode step (eager and as a CUDA graph) and print
     it beside ``bound_ms`` and the batched prefill."""
@@ -1980,14 +1995,14 @@ def families_cuts(device, smi):
     the SSM's decode against a fresh prefill at the reference's
     tolerance."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model, moe, params_from_numpy
+    from repro_torch.models import api, build_model, moe, params_from_numpy
     for i, (name, (over, what)) in enumerate(CUTS.items()):
         cfg = get_config(name, **over)
         card, _ = built(cfg, device, SEED + 100 + i)
         t0 = time.perf_counter()
         host = build_model(cfg, "cpu")
-        host.load_state_dict(params_from_numpy(cfg, numpy_tree(card),
-                                               "cpu"))
+        host.load_state_dict(params_from_numpy(
+            cfg, api.params_to_numpy(cfg, card.state_dict()), "cpu"))
         check(all(torch.equal(a.cpu(), b) for a, b in
                   zip(card.state_dict().values(),
                       host.state_dict().values())), f"{name}: weights")
@@ -2063,6 +2078,350 @@ def phase_families(device, smi):
     print(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 10
+
+#: phase 10 (c): the seven configs of the CPU parity tests at 2-layer
+#: cuts, widths full (phase 9's cuts and two dense ones)
+TRAIN_CUTS = {
+    "qwen3-32b": (dict(n_layers=2, vocab_size=512),
+                  "n_layers 64->2, vocab 151936->512"),
+    "gemma2-9b": (dict(n_layers=2, vocab_size=512),
+                  "n_layers 42->2 (one local/global group), vocab "
+                  "256000->512"),
+    **{name: CUTS[name] for name in (
+        "llama4-scout-17b-a16e", "mamba2-370m", "zamba2-1.2b",
+        "hubert-xlarge", "paligemma-3b")},
+}
+
+
+def unmasked_pairs(kind, s, window):
+    """Query-key pairs a (sequence, head) attends: causal, or causal
+    within ``window`` (local)."""
+    if kind == "local":
+        w = min(window, s)
+        return w * (w + 1) // 2 + (s - w) * w
+    return s * (s + 1) // 2
+
+
+def matmul_params(cfg):
+    """Parameters that enter a matrix product: every matrix but an
+    untied embedding (a lookup); a tied one is the unembedding."""
+    from repro_torch.models import api
+    return sum(int(np.prod(p.shape)) for name, _, _, p in
+               api.param_layout(cfg) if len(p.shape) >= 2
+               and (name != "embed" or cfg.tie_embeddings))
+
+
+def train_bound(cfg, batch, seq):
+    """(ms, operations) of a dense LM's train step at the bf16 peak: 3 x
+    (2 x matmul parameters x tokens + the attention's 4 B H hd x
+    unmasked pairs); remat's second forward is not counted."""
+    from repro_torch.models import transformer as T
+    attn = sum(4 * batch * cfg.n_heads * cfg.head_dim
+               * unmasked_pairs(kind, seq, cfg.window)
+               for kind in T.layer_kinds(cfg))
+    ops = 3 * (2 * matmul_params(cfg) * batch * seq + attn)
+    return ops / BF16_FLOPS * 1e3, ops
+
+
+def pattern_batch(cfg, batch, seq, device):
+    """Step 0 of the pattern source, on ``device``."""
+    from repro_torch.data import DataConfig, device_batch, make_source
+    src = make_source(DataConfig(cfg.vocab_size, seq, batch,
+                                 source="pattern"), device=device)
+    return device_batch(src.batch_at(0), device)
+
+
+def profiled_step(cfg, device, batch, seed):
+    """(float64 kernels' ms, all kernels' ms, syncs, seconds taken) of
+    train steps of a fresh model after a warm step: one under
+    ``torch.profiler`` (device activity only), one listing the
+    synchronizing CUDA calls ``set_sync_debug_mode("warn")`` reports
+    (``syncs``: each call's Python file:line)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime import make_train_step
+    model, _ = built(cfg, device, seed)
+    step = make_train_step(model, AdamWConfig())
+    state = init_state(dict(model.named_parameters()))
+    t0 = time.perf_counter()
+    step(state, batch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    f64 = sum(e.self_device_time_total for e in kernels
+              if FP64_KERNEL.search(e.key)) / 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        caught.clear()           # turning the mode on may warn once
+        try:
+            step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchronizing" in str(w.message)]
+    del model, state, step, prof
+    free()
+    return f64, total, syncs, time.perf_counter() - t0
+
+
+def training_run(label, argv, cfg, batch, seq, device, smi, seed, falls):
+    """``launch.train.main(argv)`` into a temporary checkpoint
+    directory: gates (no skipped step, finite losses, ``falls`` over the
+    first and last ``falls`` losses) and figures; then one profiled step
+    of a fresh model for the float64 kernels' share."""
+    from repro_torch.launch import train as LT
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=work)
+    t0 = time.perf_counter()
+    try:
+        res = LT.main(argv + ["--checkpoint-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    peak = peak_gib()
+    losses = res.losses
+    first, last = np.mean(losses[:falls]), np.mean(losses[-falls:])
+    check(res.skipped_steps == 0 and np.isfinite(losses).all(),
+          f"{label}: skipped {res.skipped_steps}, losses {losses}")
+    check(last < first, f"{label}: loss did not fall ({losses})")
+    steps = res.step_seconds[STEP_FROM:]
+    step_ms = statistics.median(steps) * 1e3
+    bound_ms, ops = train_bound(cfg, batch, seq)
+    f64_ms, kern_ms, syncs, prof_s = profiled_step(
+        cfg, device, pattern_batch(cfg, batch, seq, device), seed)
+    check(kern_ms > 0, f"{label}: the profiler recorded no device time")
+    check(len(syncs) == STEP_SYNCS, f"{label}: {len(syncs)} syncs in a "
+          f"train step ({', '.join(syncs)}), expected {STEP_SYNCS}")
+    print(f"  {label}: {res.final_step} steps of {batch} x {seq} tokens; "
+          f"step {step_ms:.1f} ms (median of steps {STEP_FROM}-"
+          f"{res.final_step - 1}; {min(steps) * 1e3:.1f}-"
+          f"{max(steps) * 1e3:.1f}), {batch * seq * 1e3 / step_ms:,.0f} "
+          f"tokens/s; loss {first:.4f} -> {last:.4f} (mean of the first "
+          f"and last {falls}); peak {peak:.2f} GiB; float64 kernels "
+          f"(flash_attention's sums) {f64_ms:.1f} of {kern_ms:.1f} ms of "
+          f"kernel time in a profiled step ({f64_ms / kern_ms:.1%}; "
+          f"{f64_ms / step_ms:.1%} of the step); {len(syncs)} sync a step "
+          f"({', '.join(syncs)}); "
+          f"bound {bound_ms:.3f} ms "
+          f"({ops:.4e} operations), {bound_ms / step_ms:.1%} of the step; "
+          f"main() {wall:.1f} s with init and checkpoints, the profiled "
+          f"step {prof_s:.1f} s with its warm step [{smi}]")
+    return res
+
+
+def train_inputs(cfg, gen, device):
+    """A (2, 64) batch of ``cfg``'s family drawn on ``device``."""
+    b, s = 2, 64
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=device)
+    if cfg.family == "encoder":
+        return {"frames": torch.randn((b, s, 512), generator=gen,
+                                      device=device).to(torch.bfloat16),
+                "mask": torch.rand((b, s), generator=gen,
+                                   device=device) < 0.3,
+                "labels": labels}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=device),
+             "labels": labels,
+             "mask": (torch.rand((b, s), generator=gen, device=device)
+                      < 0.9).to(torch.float32)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (b, cfg.n_vis_tokens, cfg.d_vis), generator=gen,
+            device=device).to(torch.bfloat16)
+    return batch
+
+
+def loss_and_grads(model, batch):
+    """(loss, {name: float32 CPU gradient}) of ``model.train_loss``."""
+    model.requires_grad_(True)
+    names = [n for n, _ in model.named_parameters()]
+    loss = model.train_loss({k: v.to(model.device)
+                             for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return float(loss.detach()), {n: g.to(torch.float32).cpu()
+                                  for n, g in zip(names, grads)}
+
+
+def rel_l2(got, want):
+    return ((got - want).norm() / want.norm().clamp_min(1e-12)).item()
+
+
+def training_cuts(device, smi):
+    """(c) each config of the CPU tests at a 2-layer cut, the same
+    weights and batch on the card and on the CPU, in bf16 and then in
+    float32: the loss and every gradient leaf within the CPU tests'
+    tolerances, the CPU's float32 gradients standing as the truth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, build_model, params_from_numpy
+    for i, (name, (over, what)) in enumerate(TRAIN_CUTS.items()):
+        t_cut = time.perf_counter()
+        cfg = get_config(name, **over)
+        card, _ = built(cfg, device, SEED + 200 + i)
+        host = build_model(cfg, "cpu")
+        host.load_state_dict(params_from_numpy(
+            cfg, api.params_to_numpy(cfg, card.state_dict()), "cpu"))
+        gen = torch.Generator(device=device).manual_seed(SEED + 210 + i)
+        batch = train_inputs(cfg, gen, device)
+        runs, cpu_s = {}, 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32:
+                card.float()
+                host.float()
+            got = loss_and_grads(card, batch)
+            t0 = time.perf_counter()
+            want = loss_and_grads(host, {k: v.cpu()
+                                         for k, v in batch.items()})
+            cpu_s += time.perf_counter() - t0
+            check(np.isfinite(got[0]) and abs(got[0] - want[0])
+                  <= TRAIN_LOSS_RTOL[dtype] * abs(want[0]),
+                  f"{name} cut {dtype}: loss {got[0]} vs CPU {want[0]}")
+            runs[dtype] = got, want
+        truth = runs[torch.float32][1][1]
+        errs = {n: (rel_l2(runs[torch.float32][0][1][n], truth[n]),
+                    rel_l2(runs[torch.bfloat16][0][1][n], truth[n]),
+                    rel_l2(runs[torch.bfloat16][1][1][n], truth[n]))
+                for n in truth}
+        median_own = float(np.median([e[2] for e in errs.values()]))
+        bad = {n: e for n, e in errs.items()
+               if not (e[0] <= TRAIN_F32_GRAD_RTOL and e[1] <= max(
+                   TRAIN_BF16_GRAD_RTOL, 2 * e[2], 2 * median_own))}
+        check(not bad, f"{name} cut: gradients {bad}")
+        worst = max(errs, key=lambda n: errs[n][1] / max(
+            TRAIN_BF16_GRAD_RTOL, 2 * errs[n][2], 2 * median_own))
+        print(f"  {name} cut ({what}; widths full): {card.param_count():,} "
+              f"parameters; loss card {runs[torch.bfloat16][0][0]:.5f} / "
+              f"CPU {runs[torch.bfloat16][1][0]:.5f} (bf16), "
+              f"{runs[torch.float32][0][0]:.6f} / "
+              f"{runs[torch.float32][1][0]:.6f} (float32); {len(errs)} "
+              f"gradient leaves: float32 card vs CPU at most "
+              f"{max(e[0] for e in errs.values()):.2e}; bf16 card vs the "
+              f"CPU's float32 at most {max(e[1] for e in errs.values()):.4f}"
+              f" (worst against its bound: {worst} {errs[worst][1]:.4f}, "
+              f"the CPU's own bf16 {errs[worst][2]:.4f}, median "
+              f"{median_own:.4f}); CPU {cpu_s:.1f} s, "
+              f"{time.perf_counter() - t_cut:.1f} s with the card and the "
+              f"copies")
+        del card, host, runs, truth
+        free()
+
+
+def training_bits(device, smi):
+    """(d) exact accumulation over 2 microbatches in both orders, and a
+    checkpoint written on the card restored and resumed."""
+    t0 = time.perf_counter()
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten_with_names
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch.train import PRESET_100M
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime import TrainerConfig, make_train_step, train
+    from repro_torch.runtime import trainer as TR
+    cfg = dataclasses.replace(get_config("qwen3-32b"), **PRESET_100M)
+    batch = pattern_batch(cfg, 8, 256, device)
+    runs = []
+    for perm in (list(range(8)), [4, 5, 6, 7, 0, 1, 2, 3]):
+        model, _ = built(cfg, device, SEED + 300)
+        step = make_train_step(model, AdamWConfig(), microbatches=2,
+                               exact_accum=True)
+        stats = step(init_state(dict(model.named_parameters())),
+                     {k: v[perm] for k, v in batch.items()})
+        runs.append((stats["loss"], [p.detach().clone()
+                                     for p in model.parameters()]))
+        del model, step
+        free()
+    check(runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])),
+        "exact_accum: microbatch order changed the parameters")
+    del runs
+    opt = AdamWConfig(warmup_steps=1, total_steps=6)
+    src = make_source(DataConfig(cfg.vocab_size, 256, 8, source="pattern"),
+                      device=device)
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt, ckpt_full = tempfile.mkdtemp(dir=work), tempfile.mkdtemp(dir=work)
+    try:
+        trained = build_model(cfg, device)
+        res = train(trained, src, opt, TrainerConfig(
+            steps=4, checkpoint_every=2, checkpoint_dir=ckpt, log_every=0),
+            resume=False, seed=SEED + 301)
+        mgr = CheckpointManager(ckpt)
+        check(res.final_step == 4 and mgr.all_steps() == [2, 4],
+              f"checkpoints {mgr.all_steps()} after {res.final_step} steps")
+        fresh = build_model(cfg, device)
+        state = init_state(dict(fresh.named_parameters()))
+        TR.load_state(fresh, state, mgr.restore(4, TR._like_tree(cfg),
+                                                device))
+        check(int(state["step"]) == 4 and all(
+            torch.equal(a, b) for a, b in zip(fresh.parameters(),
+                                              trained.parameters())),
+            "checkpoint: restored parameters differ from the trained")
+        del fresh, state, trained
+        resumed = train(build_model(cfg, device), src, opt, TrainerConfig(
+            steps=6, checkpoint_every=0, checkpoint_dir=ckpt, log_every=0))
+        check(resumed.final_step == 6 and len(resumed.losses) == 2,
+              f"resume: {resumed.final_step}, {resumed.losses}")
+        whole = train(build_model(cfg, device), src, opt, TrainerConfig(
+            steps=6, checkpoint_every=0, checkpoint_dir=ckpt_full,
+            log_every=0), resume=False, seed=SEED + 301)
+        check(resumed.losses == whole.losses[4:],
+              f"resume: steps 4-5 {resumed.losses} vs {whole.losses[4:]}")
+        like = TR._like_tree(cfg)
+        ends = [CheckpointManager(d).restore(6, like)
+                for d in (ckpt, ckpt_full)]
+        leaves = [dict(_flatten_with_names(t)) for t in ends]
+        differ = [n for n in leaves[1] if not torch.equal(leaves[0][n],
+                                                          leaves[1][n])]
+        check(not differ, f"resume: step 6 differs from an uninterrupted "
+              f"run's in {differ[:5]} ({len(differ)} leaves)")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(ckpt_full, ignore_errors=True)
+    print(f"  bits (100m preset, 8 x 256): exact_accum over 2 microbatches "
+          f"gives bit-equal parameters in both orders; a checkpoint at step "
+          f"4 restores bit for bit and resumes at step 4: steps 4-5 "
+          f"{', '.join(f'{v:.6f}' for v in resumed.losses)} and the step-6 "
+          f"checkpoint ({len(leaves[0])} leaves: parameters, moments, step) "
+          f"equal an uninterrupted run's bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    free()
+
+
+def phase_training(device, smi):
+    """The training path: ``launch.train`` (Model.train_loss, autograd,
+    AdamW, the checkpoint manager, the trainer loop) on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import PRESET_100M
+    print(f"phase 10: training (launch.train over runtime.train) [{smi}]")
+    t0 = time.perf_counter()
+    preset = dataclasses.replace(get_config("qwen3-32b"), **PRESET_100M)
+    training_run("(a) qwen3 100m preset, 153.0 M parameters", PRESET_ARGS,
+                 preset, 8, 256, device, smi, SEED + 400, falls=5)
+    g = GEMMA3_TRAIN
+    gemma3 = get_config("gemma3-1b")
+    training_run(
+        f"(b) gemma3-1b, full width and depth (reduced: global batch "
+        f"256->{g['batch']}), remat on",
+        ["--arch", "gemma3-1b", "--steps", str(g["steps"]), "--seq-len",
+         str(g["seq"]), "--global-batch", str(g["batch"]), "--source",
+         "pattern", "--no-resume", "--checkpoint-every", "0"],
+        gemma3, g["batch"], g["seq"], device, smi, SEED + 401, falls=3)
+    print("  (c) card = CPU, loss and gradients")
+    training_cuts(device, smi)
+    training_bits(device, smi)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2081,6 +2440,7 @@ def main():
     phase_determinism(device)
     phase_models(device, smi)
     phase_families(device, smi)
+    phase_training(device, smi)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

@@ -1,5 +1,6 @@
-"""Launch layer: the serving CLI (:mod:`.serve`).
+"""Launch layer: the serving CLI (:mod:`.serve`) and the training CLI
+(:mod:`.train`).
 
-The reference's meshes, sharding rules, dry-run and train CLI are not
-ported yet (ROADMAP queue 1).
+The reference's meshes, sharding rules and dry-run are not ported yet
+(ROADMAP queue 1).
 """

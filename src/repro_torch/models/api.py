@@ -4,6 +4,8 @@
   model.init(torch.Generator(model.device).manual_seed(0))
   caches, logits = model.prefill({"tokens": tokens}, s_cap)
   caches, logits = model.decode_step(caches, token, pos)
+  model.requires_grad_(True)
+  loss = model.train_loss({"tokens": t, "labels": l, "mask": m})
 
 Families: dense | moe (:mod:`.transformer`, :mod:`.moe`), ssm | hybrid
 (:mod:`.hybrid`, :mod:`.ssm`), encoder (:mod:`.encoder`: ``prefill``
@@ -18,8 +20,14 @@ or a hybrid's Mamba layers) and a hybrid's one ``shared_attn`` block.
 Only the layer and group scan axes are unstacked: an MoE layer's experts
 stay one ``(E, d, f)`` parameter.  A leaf keeps its template's dtype
 (the MoE ``router`` and the SSM's ``dt_bias``, ``A_log`` and ``D`` are
-float32).  They are for serving: no gradient is kept, and
-``train_loss`` raises ``NotImplementedError`` naming its ROADMAP item.
+float32).  They are made with ``requires_grad=False``, so serving
+keeps no gradient (``prefill`` and ``decode_step`` also run under
+``torch.no_grad``); ``model.requires_grad_(True)`` turns gradients on
+for ``train_loss`` (``runtime.make_train_step`` does).  The reference's
+stacked trees of parameters, or of anything keyed by parameter name (the
+optimizer's moments), come and go through :func:`stack_tree`,
+:func:`unstack_tree`, :func:`params_from_numpy` and
+:func:`params_to_numpy`.
 """
 from __future__ import annotations
 
@@ -213,10 +221,23 @@ class Model(_Block):
         """Zeroed caches of :meth:`cache_spec` on the model's device."""
         return tfm.init_cache(self.cache_spec(batch, s_cap), self.device)
 
-    def train_loss(self, *args, **kwargs):
-        raise NotImplementedError(
-            "train_loss is not ported yet (ROADMAP queue 1: the training "
-            "stack, with cross_entropy_chunked)")
+    def train_loss(self, batch):
+        """Mean cross-entropy of ``batch``: ``tokens``, ``labels`` and
+        an optional ``mask`` (the encoder: ``frames``, bool ``mask``,
+        ``labels``; the VLM adds ``image_embeds``), as the reference's
+        ``Model.train_loss``.  Gradients flow to the parameters that
+        require them."""
+        f, cfg = self.cfg.family, self.cfg
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
+        if f in ("dense", "moe"):
+            return tfm.lm_train_loss(self, batch, cfg,
+                                     embed_scale=_gemma_like(cfg))
+        if f in ("ssm", "hybrid"):
+            return hybrid.lm_train_loss(self, batch, cfg)
+        if f == "encoder":
+            return encoder.encoder_train_loss(self, batch, cfg)
+        return vlm.vlm_train_loss(self, batch, cfg)
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
@@ -237,6 +258,67 @@ def _leaf(arr, dtype, device) -> torch.Tensor:
         raise TypeError(f"expected {want} for a {dtype} leaf, got "
                         f"{arr.dtype}")
     return torch.tensor(arr, dtype=dtype, device=device)
+
+
+def stacked_layout(cfg: ArchConfig) -> dict:
+    """``{reference leaf path: (stacked shape, [(state-dict name,
+    index)])}`` in the reference's flatten order (dict keys sorted): the
+    state-dict entries each leaf of the reference's tree stacks."""
+    tpl = template(cfg)
+    out = {}
+    for name, path, idx, _ in param_layout(cfg):
+        if path not in out:
+            node = tpl
+            for key in path:
+                node = node[key]
+            out[path] = (node.shape, [])
+        out[path][1].append((name, idx))
+    return {path: out[path] for path in sorted(out)}
+
+
+def stack_tree(cfg: ArchConfig, flat: dict) -> dict:
+    """Tensors keyed by state-dict name (parameters, or an optimizer's
+    moments) -> the reference's nested tree, the layers stacked back
+    along their scan axes: new CPU tensors, dtypes kept."""
+    tree = {}
+    for path, (shape, members) in stacked_layout(cfg).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        first = flat[members[0][0]]
+        leaf = torch.empty(shape, dtype=first.dtype)
+        for name, idx in members:
+            leaf[idx] = flat[name].detach()
+        node[path[-1]] = leaf
+    return tree
+
+
+def unstack_tree(cfg: ArchConfig, tree: dict) -> dict:
+    """The inverse of :func:`stack_tree`: the reference's nested tree ->
+    tensors keyed by state-dict name (views of its leaves)."""
+    out = {}
+    for name, path, idx, _ in param_layout(cfg):
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        out[name] = leaf[idx]
+    return out
+
+
+def params_to_numpy(cfg: ArchConfig, state_dict: dict) -> dict:
+    """The inverse of :func:`params_from_numpy`: a state dict -> the
+    reference's parameter tree as numpy arrays, bf16 leaves as uint16
+    bit views, float32 leaves as float32."""
+    def one(t):
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return one(node)
+    return walk(stack_tree(cfg, state_dict))
 
 
 def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> dict:

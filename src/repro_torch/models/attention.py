@@ -53,9 +53,10 @@ def _chunk_mask(qpos, kpos, kind: str, window, prefix_len):
 
 
 def _score_block(q_blk, k_blk, scale, logit_cap, msk):
-    # q_blk: (B, qc, KV, G, D), k_blk: (B, kc, KV, D) -> (B, KV, G, qc, kc)
-    s = torch.einsum("bqkgd,bskd->bkgqs", q_blk.to(torch.float64),
-                     k_blk.to(torch.float64)).to(torch.float32) * scale
+    # q_blk: (B, qc, KV, G, D), k_blk: (B, kc, KV, D), float64 copies of
+    # the working-dtype values -> (B, KV, G, qc, kc) float32
+    s = torch.einsum("bqkgd,bskd->bkgqs", q_blk,
+                     k_blk).to(torch.float32) * scale
     if logit_cap is not None:
         s = torch.tanh(s / logit_cap) * logit_cap
     if msk is not None:
@@ -63,11 +64,11 @@ def _score_block(q_blk, k_blk, scale, logit_cap, msk):
     return s
 
 
-def _pv_block(p, v_blk):
-    # p: (B, KV, G, qc, kc) f32, rounded to v's dtype; v_blk: (B, kc, KV, D)
+def _pv_block(p, v_blk, dtype):
+    # p: (B, KV, G, qc, kc) f32, rounded to the working ``dtype``; v_blk:
+    # (B, kc, KV, D), a float64 copy of working-dtype values
     return torch.einsum("bkgqs,bskd->bkgqd",
-                        p.to(v_blk.dtype).to(torch.float64),
-                        v_blk.to(torch.float64))
+                        p.to(dtype).to(torch.float64), v_blk)
 
 
 def _band_pairs(n_q: int, n_k: int, kind: str, window, k_chunk: int,
@@ -110,7 +111,11 @@ def flash_attention(q, k, v, *, mask_kind: str = "causal",
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
     scale = 1.0 / math.sqrt(d)
-    q = q.reshape(b, sq, kv, g, d)
+    dtype = v.dtype
+    # float64 copies made once: autograd then keeps one of each, not one
+    # a chunk pair
+    q = q.reshape(b, sq, kv, g, d).to(torch.float64)
+    k, v = k.to(torch.float64), v.to(torch.float64)
 
     q_chunk = min(q_chunk, sq)
     k_chunk = min(k_chunk, sk)
@@ -136,18 +141,22 @@ def flash_attention(q, k, v, *, mask_kind: str = "causal",
 
     m = [torch.full((b, kv, g, q_chunk, 1), NEG_INF, device=q.device)
          for _ in range(n_q)]
-    for qi, _, s in blocks():                  # pass 1: each row's max
-        m[qi] = torch.maximum(m[qi], s.amax(-1, keepdim=True))
+    # pass 1: each row's max.  It only shifts the exponents, and its
+    # gradient cancels, so autograd does not record it.
+    with torch.no_grad():
+        for qi, _, s in blocks():
+            m[qi] = torch.maximum(m[qi], s.amax(-1, keepdim=True))
     l = [0.0] * n_q
     acc = [0.0] * n_q
     for qi, ki, s in blocks():                 # pass 2: float64 sums
         p = torch.exp(s - m[qi])
         l[qi] = l[qi] + p.sum(-1, dtype=torch.float64)
-        acc[qi] = acc[qi] + _pv_block(p, v[:, ki * k_chunk:(ki + 1) * k_chunk])
+        acc[qi] = acc[qi] + _pv_block(
+            p, v[:, ki * k_chunk:(ki + 1) * k_chunk], dtype)
     # (B, KV, G, qc, D) -> (B, qc, KV, G, D), chunks along the sequence
     out = torch.cat([(a / torch.clamp(n, min=1e-30)[..., None])
                      .permute(0, 3, 1, 2, 4) for n, a in zip(l, acc)], dim=1)
-    return out.reshape(b, sq, h, d).to(v.dtype)
+    return out.reshape(b, sq, h, d).to(dtype)
 
 
 def int_einsum(equation: str, a: torch.Tensor, b: torch.Tensor
@@ -231,8 +240,10 @@ def decode_attention(q, k_cache, v_cache, valid, *,
     b, _, h, d = q.shape
     kv = k_cache.shape[2]
     g = h // kv
-    s = _score_block(q.reshape(b, 1, kv, g, d), k_cache, 1.0 / math.sqrt(d),
+    s = _score_block(q.reshape(b, 1, kv, g, d).to(torch.float64),
+                     k_cache.to(torch.float64), 1.0 / math.sqrt(d),
                      logit_cap, valid[:, None, None, None, :])
     p = torch.exp(s - s.amax(-1, keepdim=True))
-    out = _pv_block(p, v_cache) / p.sum(-1, dtype=torch.float64)[..., None]
+    out = _pv_block(p, v_cache.to(torch.float64), v_cache.dtype) \
+        / p.sum(-1, dtype=torch.float64)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d).to(v_cache.dtype)

@@ -12,7 +12,10 @@ the reference's points (``rms_norm``, ``softcap``, ``rope``), and
 ``swiglu`` rounds ``silu(g)`` to the working dtype before the product,
 so bf16 results round where the reference's do.  Matmuls stay
 ``torch.matmul`` in the working dtype, through :func:`matmul`: one call
-shape for every row count, so a row's bits do not depend on its batch.
+shape for every row count, so a row's bits do not depend on its batch
+(serving), or one call over all rows (training).
+:func:`cross_entropy_chunked` is the training loss's streamed
+cross-entropy.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,9 +96,10 @@ def param_count(template) -> int:
 MATMUL_ROWS = 64
 
 
-def matmul(x, w):
+def matmul(x, w, train: bool = False):
     """``x @ w``, as fixed-shape ``(MATMUL_ROWS, K) @ (K, N)`` calls over
-    the rows of ``x`` (the last call's rows padded with zeros).
+    the rows of ``x`` (the last call's rows padded with zeros); with
+    ``train``, as one call over all rows.
 
     cuBLAS picks its kernel, and with it the order a row's products are
     summed in, by the row count: a decode step's row (M = slots) and the
@@ -102,7 +107,14 @@ def matmul(x, w):
     apart now and then, and over gemma2-9b's 42 layers those flips grow
     to 0.15 of the logits' std.  One call shape gives a row the same
     bits in any batch.
+
+    Training has no decode step to match, and there the fixed calls
+    would cost precision: autograd would sum a bf16 weight's gradient
+    from one bf16 piece a call, where one product over all rows (the
+    reference's einsum) rounds it once.
     """
+    if train:
+        return x @ w
     lead, k = x.shape[:-1], x.shape[-1]
     rows = x.reshape(-1, k)
     n = rows.shape[0]
@@ -145,14 +157,50 @@ def rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
-def swiglu(x, w_gate, w_up, w_down):
-    g = matmul(x, w_gate)
-    u = matmul(x, w_up)
+def swiglu(x, w_gate, w_up, w_down, train: bool = False):
+    g = matmul(x, w_gate, train)
+    u = matmul(x, w_up, train)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-    return matmul(h, w_down)
+    return matmul(h, w_down, train)
 
 
 def gelu_mlp(x, w_in, w_out):
     h = matmul(x, w_in)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
     return matmul(h, w_out)
+
+
+def cross_entropy_chunked(logits_fn, x, labels, mask, chunk: int = 512,
+                          final_cap: float | None = None):
+    """Streamed mean cross-entropy over the positions ``mask`` weights.
+
+    logits_fn: (B, c, D) -> (B, c, V).  The sequence runs in chunks of
+    ``chunk`` (one chunk when ``chunk`` does not divide it), each
+    recomputed in the backward pass (``checkpoint``), so only one
+    chunk's (B, c, V) float32 logits is alive at a time.  Logits are
+    softcapped, then taken to float32 for the ``logsumexp``; the gold
+    logit is a gather, the same float32 value as the reference's one-hot
+    sum (every other term is zero).  Sums run in float32, chunk by
+    chunk, as the reference's scan.
+    """
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s  # fallback: single chunk
+
+    def body(xs, ls, ms):
+        logits = softcap(logits_fn(xs), final_cap).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, ls[..., None].long())[..., 0]
+        return ((lse - gold) * ms).sum()
+
+    mask = mask.to(torch.float32)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        ms = mask[:, i:i + chunk]
+        loss_sum = loss_sum + checkpoint(body, x[:, i:i + chunk],
+                                         labels[:, i:i + chunk], ms,
+                                         use_reentrant=False)
+        cnt = cnt + ms.sum()
+    return loss_sum / torch.clamp(cnt, min=1.0)

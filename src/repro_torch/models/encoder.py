@@ -4,9 +4,9 @@
 The conv/audio frontend is a stub: the input is precomputed frame
 embeddings (B, T, ``D_FRONTEND``), lifted to d_model by a learned
 projection.  The backbone is a bidirectional transformer (mask kind
-"none").  Encoder-only: no KV cache and no decode step.  The
-masked-prediction loss (``encoder_train_loss``) waits for the training
-stack (ROADMAP queue 1).
+"none").  Encoder-only: no KV cache and no decode step.  The loss
+(:func:`encoder_train_loss`) is cross-entropy on the masked frames
+only; in train mode each layer is the unit ``cfg.remat`` recomputes.
 """
 from __future__ import annotations
 
@@ -32,20 +32,36 @@ def encoder_templates(cfg: ArchConfig) -> dict:
     }
 
 
-def _encode(model, frames, mask, cfg: ArchConfig):
+def _encode(model, frames, mask, cfg: ArchConfig, mode: str):
     """frames (B, T, D_FRONTEND); ``mask`` (B, T) bool or None: frames
     replaced by ``mask_embed``.  Returns the final-normed (B, T, D)."""
     b, s, _ = frames.shape
-    x = base.matmul(frames.to(torch.bfloat16), model.frame_proj)
+    train = mode == "train"
+    # bf16 frames, promoted to a float32 projection's dtype as jnp does
+    x = base.matmul(frames.to(torch.bfloat16).to(model.frame_proj.dtype),
+                    model.frame_proj, train)
     if mask is not None:
         x = torch.where(mask[..., None], model.mask_embed, x)
     positions = torch.arange(s, device=frames.device).expand(b, s)
-    for layer in model.layers:
-        x, _ = tfm.layer_apply(layer, x, cfg, "prefill", positions=positions,
-                               mask_override="none")
+
+    def one(i, x):
+        return tfm.layer_apply(model.layers[i], x, cfg, mode,
+                               positions=positions, mask_override="none")
+    x, _ = tfm.run_units(one, [1] * cfg.n_layers, x, train and cfg.remat)
     return base.rms_norm(x, model.final_norm, cfg.norm_eps)
+
+
+def encoder_train_loss(model, batch, cfg: ArchConfig):
+    """batch: frames (B, T, 512) bf16, mask (B, T) bool, labels (B, T)
+    ints; cross-entropy on the masked frames only."""
+    frames, mask, labels = batch["frames"], batch["mask"], batch["labels"]
+    x = _encode(model, frames, mask, cfg, "train")
+    return base.cross_entropy_chunked(
+        lambda xs: base.matmul(xs, model.lm_head, train=True), x, labels,
+        mask.to(torch.float32), chunk=cfg.ce_chunk)
 
 
 def encoder_forward(model, frames, cfg: ArchConfig):
     """Serving path: full-sequence unit logits (B, T, V)."""
-    return base.matmul(_encode(model, frames, None, cfg), model.lm_head)
+    return base.matmul(_encode(model, frames, None, cfg, "prefill"),
+                       model.lm_head)

@@ -10,6 +10,8 @@ group's ``every`` layers, then the tail's) and the one ``shared_attn``
 block.  Caches are one batch-first dict per application, in the same
 order: each group's shared-attention cache, then its Mamba caches, then
 the tail's.  No embedding scale and no final softcap, as the reference.
+In train mode (no caches) each group, and each tail layer, is the unit
+``cfg.remat`` recomputes in the backward pass, as the reference's.
 """
 from __future__ import annotations
 
@@ -67,19 +69,36 @@ def stack_apply(model, x, cfg: ArchConfig, mode: str, caches=None,
     Fills ``caches`` in place."""
     every, n_groups, n_tail = pattern(cfg)
     apps = iter(caches) if caches is not None else itertools.repeat(None)
-    layers = iter(model.layers)
-    for _ in range(n_groups):
-        if cfg.shared_attn_every:
+
+    def one(i, x):
+        """Mamba layer ``i``, after the shared block where a group
+        starts."""
+        if cfg.shared_attn_every and i < n_groups * every \
+                and i % every == 0:
             x, _ = tfm.layer_apply(model.shared_attn, x, cfg, mode,
                                    cache=next(apps),
                                    positions=positions, pos=pos)
-        for _ in range(every):
-            x = ssm_apply(next(layers), x, cfg, mode,
-                          cache=next(apps))
-    for _ in range(n_tail):
-        x = ssm_apply(next(layers), x, cfg, mode,
-                      cache=next(apps))
-    return x
+        return ssm_apply(model.layers[i], x, cfg, mode,
+                         cache=next(apps)), 0.0
+
+    return tfm.run_units(one, [every] * n_groups + [1] * n_tail, x,
+                         mode == "train" and cfg.remat)[0]
+
+
+def lm_train_loss(model, batch, cfg: ArchConfig):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``, optional ``mask``)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = tfm.loss_mask(batch)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = tfm.embed_tokens(model, tokens, cfg, False)
+    x = stack_apply(model, x, cfg, "train", positions=positions)
+    x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
+    w = tfm.unembed_matrix(model, cfg)
+    return base.cross_entropy_chunked(
+        lambda xs: base.matmul(xs, w, train=True), x, labels, mask,
+        chunk=cfg.ce_chunk, final_cap=cfg.final_logit_cap)
 
 
 def lm_prefill(model, tokens, cfg: ArchConfig, s_cap=None):

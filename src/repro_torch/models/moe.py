@@ -53,32 +53,35 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _expert_ffn(xg, p):
+def _expert_ffn(xg, p, train: bool = False):
     """xg: (E, C, D) tokens grouped per expert -> (E, C, D)."""
     return torch.stack([base.swiglu(xg[e], p.w_gate[e], p.w_up[e],
-                                    p.w_down[e])
+                                    p.w_down[e], train)
                         for e in range(xg.shape[0])])
 
 
-def moe_apply(p, x, cfg: ArchConfig, decode: bool = False):
-    """Returns (x + moe(x), router_z_loss)."""
+def moe_apply(p, x, cfg: ArchConfig, decode: bool = False,
+              train: bool = False):
+    """Returns (x + moe(x), router_z_loss); ``train`` makes each
+    projection one matmul call (``base.matmul``)."""
     b, s, d = x.shape
     xn = base.rms_norm(x, p.norm, cfg.norm_eps)
-    logits = base.matmul(xn.to(torch.float32), p.router)      # (B, S, E)
+    logits = base.matmul(xn.to(torch.float32), p.router, train)  # (B,S,E)
     zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     if decode or b * s <= 4 * cfg.n_experts:
-        y = _dense_token_choice(p, xn, logits, cfg)
+        y = _dense_token_choice(p, xn, logits, cfg, train)
     else:
-        y = _expert_choice(p, xn, logits, cfg)
+        y = _expert_choice(p, xn, logits, cfg, train)
 
     if cfg.n_shared_experts:
         y = y + base.swiglu(xn, p.shared.w_gate, p.shared.w_up,
-                            p.shared.w_down)
+                            p.shared.w_down, train)
     return x + y.to(x.dtype), zloss
 
 
-def _dense_token_choice(p, xn, logits, cfg: ArchConfig):
+def _dense_token_choice(p, xn, logits, cfg: ArchConfig,
+                        train: bool = False):
     """All-experts compute + sparse top-k combine (decode path)."""
     topv, topi = top_k(logits, cfg.top_k)                    # (B, S, K)
     if cfg.top_k == 1:
@@ -90,12 +93,12 @@ def _dense_token_choice(p, xn, logits, cfg: ArchConfig):
     # values summed in float32, one rounding
     acc = torch.zeros(xn.shape, dtype=torch.float32, device=xn.device)
     for e in range(cfg.n_experts):
-        y = base.swiglu(xn, p.w_gate[e], p.w_up[e], p.w_down[e])
+        y = base.swiglu(xn, p.w_gate[e], p.w_up[e], p.w_down[e], train)
         acc += y.to(torch.float32) * w[..., e:e + 1].to(torch.float32)
     return acc.to(xn.dtype)
 
 
-def _expert_choice(p, xn, logits, cfg: ArchConfig):
+def _expert_choice(p, xn, logits, cfg: ArchConfig, train: bool = False):
     """Expert-choice dispatch: top-C tokens per expert, C = T*top_k/E."""
     b, s, d = xn.shape
     t = b * s
@@ -104,7 +107,7 @@ def _expert_choice(p, xn, logits, cfg: ArchConfig):
     xf = xn.reshape(t, d)
     affin = torch.softmax(logits.reshape(t, e), dim=-1)     # (T, E)
     gate, idx = top_k(affin.T, c)                            # (E, C)
-    y = _expert_ffn(xf[idx], p)                              # (E, C, D)
+    y = _expert_ffn(xf[idx], p, train)                       # (E, C, D)
     y = y * gate[..., None].to(y.dtype)
     return combine(y, idx, t).reshape(b, s, d)
 

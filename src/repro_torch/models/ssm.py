@@ -82,16 +82,18 @@ def _causal_conv(xbc, w, b):
     return F.silu(out).to(xbc.dtype)
 
 
-def _gated_out(p, y, z, u, cfg: ArchConfig):
+def _gated_out(p, y, z, u, cfg: ArchConfig, train: bool = False):
     y = base.rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype),
                       p.gate_norm, cfg.norm_eps)
-    return u + base.matmul(y, p.out_proj)
+    return u + base.matmul(y, p.out_proj, train)
 
 
 def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
     """Returns ``u + mamba2(u)``; with a ``cache`` (prefill or decode) it
     is written in place: the last ``kw - 1`` pre-conv rows and the final
-    state.  u: (B, S, D); a prefill needs S >= kw - 1."""
+    state.  u: (B, S, D); a prefill needs S >= kw - 1.  Mode "train" is
+    the prefill's forward with no cache and one matmul call a
+    projection."""
     if mode == "decode":
         return _ssm_decode(p, u, cfg, cache)
 
@@ -100,9 +102,10 @@ def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
                       cfg.ssm_head_dim)
     q = cfg.ssm_chunk
     f32 = torch.float32
+    train = mode == "train"
 
     xn = base.rms_norm(u, p.norm, cfg.norm_eps)
-    z, xbc_pre, dt_raw = _split_proj(base.matmul(xn, p.in_proj), cfg)
+    z, xbc_pre, dt_raw = _split_proj(base.matmul(xn, p.in_proj, train), cfg)
     xbc = _causal_conv(xbc_pre, p.conv_w, p.conv_b)
     dt = _softplus(dt_raw.to(f32) + p.dt_bias)
 
@@ -125,7 +128,12 @@ def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)                # (B,nc,q,q)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,nc,i,j,H)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=u.device))
-    lmat = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # above the diagonal seg >= 0 and its exp may overflow: masked before
+    # the exp (-inf -> 0, the same values as masking after it), its
+    # gradient is 0, not 0 * inf = nan as in the reference once a chunk's
+    # dt * |A| sums past ~88
+    lmat = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                 -torch.inf))
     w = cb[..., None] * lmat * dtc[:, :, None, :, :]
     y_diag = torch.einsum("bcijh,bcjhp->bcihp",
                           w.to(xc.dtype).to(f32), xc.to(f32))
@@ -146,7 +154,7 @@ def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
         * torch.exp(cum)[..., None]
     y = (y_diag + y_off) + p.D[None, None, None, :, None] * xc.to(f32)
     y = y.reshape(b, s, di)[:, :s_orig].to(u.dtype)
-    out = _gated_out(p, y, z, u, cfg)
+    out = _gated_out(p, y, z, u, cfg, train)
 
     if cache is not None:
         kw = cfg.ssm_conv_width

@@ -9,6 +9,10 @@ router z-loss the stack sums as the reference's ``aux`` (serving does
 not use it).
 
 Modes:
+  train    -- full-sequence forward, chunked CE loss; no cache, one
+              matmul call a projection, and where ``cfg.remat`` is set
+              each pattern group (and tail layer) recomputed in the
+              backward pass, the unit the reference remats
   prefill  -- full-sequence forward, returns KV caches + last logits
   decode   -- one token per call against the caches (ring buffers for
               sliding-window layers), written in place
@@ -24,6 +28,7 @@ import collections
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import base
 from .attention import flash_attention, decode_attention, \
@@ -213,10 +218,11 @@ def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = layer_theta(cfg, kind)
     int8 = cfg.kv_cache_dtype == "int8"
+    train = mode == "train"
     xn = base.rms_norm(x, p.norm, cfg.norm_eps)
-    q = base.matmul(xn, p.wq).reshape(b, s, h, hd)
-    k = base.matmul(xn, p.wk).reshape(b, s, kv, hd)
-    v = base.matmul(xn, p.wv).reshape(b, s, kv, hd)
+    q = base.matmul(xn, p.wq, train).reshape(b, s, h, hd)
+    k = base.matmul(xn, p.wk, train).reshape(b, s, kv, hd)
+    v = base.matmul(xn, p.wv, train).reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = base.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = base.rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -248,12 +254,12 @@ def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
             schedule=cfg.attn_schedule)
         if cache is not None:
             _prefill_write(cache, kind, k, v, int8)
-    return x + base.matmul(o.reshape(b, s, h * hd), p.wo)
+    return x + base.matmul(o.reshape(b, s, h * hd), p.wo, train)
 
 
-def mlp_apply(p, x, cfg: ArchConfig):
+def mlp_apply(p, x, cfg: ArchConfig, train: bool = False):
     xn = base.rms_norm(x, p.norm, cfg.norm_eps)
-    return x + base.swiglu(xn, p.w_gate, p.w_up, p.w_down)
+    return x + base.swiglu(xn, p.w_gate, p.w_up, p.w_down, train)
 
 
 def layer_apply(layer, x, cfg: ArchConfig, mode: str, **kw):
@@ -261,19 +267,48 @@ def layer_apply(layer, x, cfg: ArchConfig, mode: str, **kw):
     from . import moe
     x = attn_apply(layer.attn, x, cfg, layer.kind, mode, **kw)
     if cfg.family == "moe":
-        return moe.moe_apply(layer.moe, x, cfg, decode=(mode == "decode"))
-    return mlp_apply(layer.mlp, x, cfg), 0.0
+        return moe.moe_apply(layer.moe, x, cfg, decode=(mode == "decode"),
+                             train=(mode == "train"))
+    return mlp_apply(layer.mlp, x, cfg, mode == "train"), 0.0
+
+
+def remat_units(cfg: ArchConfig) -> list:
+    """Layer counts of the units the reference remats in train mode, in
+    stack order: each pattern group, then each tail layer."""
+    k_local, has_global, n_groups, n_tail = group_pattern(cfg)
+    return [k_local + has_global] * n_groups + [1] * n_tail
+
+
+def run_units(fn, units: list, x, remat: bool):
+    """``x, aux = fn(i, x)`` over layers 0.. in units of ``units``
+    layers; with ``remat`` each unit is a ``checkpoint``, recomputed in
+    the backward pass (the same values: recomputing changes no bit).
+    Returns (x, summed aux)."""
+    def unit(x, first, n):
+        aux = 0.0
+        for i in range(first, first + n):
+            x, a = fn(i, x)
+            aux = aux + a
+        return x, aux
+
+    aux, first = 0.0, 0
+    for n in units:
+        if remat:
+            x, a = checkpoint(unit, x, first, n, use_reentrant=False)
+        else:
+            x, a = unit(x, first, n)
+        aux, first = aux + a, first + n
+    return x, aux
 
 
 def stack_apply(layers, x, cfg: ArchConfig, mode: str, caches=None, **kw):
     """Run the layer stack in order; fills ``caches`` in place.  Returns
     (x, summed aux)."""
-    aux = 0.0
-    for i, layer in enumerate(layers):
-        x, a = layer_apply(layer, x, cfg, mode,
+    def one(i, x):
+        return layer_apply(layers[i], x, cfg, mode,
                            cache=None if caches is None else caches[i], **kw)
-        aux = aux + a
-    return x, aux
+    return run_units(one, remat_units(cfg), x,
+                     mode == "train" and cfg.remat)
 
 
 # ------------------------------------------------------------------ LM API
@@ -290,6 +325,36 @@ def unembed_matrix(model, cfg: ArchConfig):
     if cfg.tie_embeddings:
         return model.embed.T
     return model.unembed
+
+
+def loss_mask(batch) -> torch.Tensor:
+    """``batch["mask"]``, or float32 ones shaped as the labels."""
+    mask = batch.get("mask")
+    if mask is None:
+        labels = batch["labels"]
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return mask
+
+
+def lm_train_loss(model, batch, cfg: ArchConfig, embed_scale: bool = False):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    (B, S), optional float ``mask``); an MoE adds
+    ``router_aux_coef * aux / n_layers``."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = loss_mask(batch)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = embed_tokens(model, tokens, cfg, embed_scale)
+    x, aux = stack_apply(model.layers, x, cfg, "train", positions=positions)
+    x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
+    w = unembed_matrix(model, cfg)
+    ce = base.cross_entropy_chunked(
+        lambda xs: base.matmul(xs, w, train=True), x, labels, mask,
+        chunk=cfg.ce_chunk, final_cap=cfg.final_logit_cap)
+    if cfg.family == "moe":
+        ce = ce + cfg.router_aux_coef * aux / cfg.n_layers
+    return ce
 
 
 def lm_prefill(model, tokens, cfg: ArchConfig, s_cap=None,

@@ -5,8 +5,8 @@ The vision tower is a stub: the input is precomputed patch embeddings
 (B, n_vis_tokens, d_vis), lifted into the LM's embedding space by a
 learned linear projector.  The sequence is [image tokens | text tokens]
 under a prefix-LM mask (the image prefix attends bidirectionally, text
-is causal); text embeddings take the gemma scale.  The text-only loss
-(``vlm_train_loss``) waits for the training stack (ROADMAP queue 1).
+is causal); text embeddings take the gemma scale.  The loss
+(:func:`vlm_train_loss`) scores text positions only.
 """
 from __future__ import annotations
 
@@ -24,10 +24,38 @@ def vlm_templates(cfg: ArchConfig) -> dict:
     return tpl
 
 
-def _embed_multimodal(model, image_embeds, tokens, cfg: ArchConfig):
-    vis = base.matmul(image_embeds.to(torch.bfloat16), model.vis_proj)
+def _embed_multimodal(model, image_embeds, tokens, cfg: ArchConfig,
+                      train: bool = False):
+    # bf16 patches, promoted to a float32 projector's dtype as jnp does
+    vis = base.matmul(image_embeds.to(torch.bfloat16).to(
+        model.vis_proj.dtype), model.vis_proj, train)
     txt = tfm.embed_tokens(model, tokens, cfg, scale=True)
     return torch.cat([vis.to(txt.dtype), txt], dim=1)
+
+
+def vlm_train_loss(model, batch, cfg: ArchConfig):
+    """batch: image_embeds (B, n_vis_tokens, d_vis), tokens and labels
+    (B, St), optional mask; the image positions are never scored."""
+    img, tokens, labels = (batch["image_embeds"], batch["tokens"],
+                           batch["labels"])
+    mask = tfm.loss_mask(batch)
+    b, st = tokens.shape
+    nv = cfg.n_vis_tokens
+    x = _embed_multimodal(model, img, tokens, cfg, train=True)
+    s = nv + st
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x, _ = tfm.stack_apply(model.layers, x, cfg, "train",
+                           positions=positions, prefix_len=nv)
+    x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
+    full_labels = torch.cat([torch.zeros((b, nv), dtype=labels.dtype,
+                                         device=labels.device), labels], 1)
+    full_mask = torch.cat([torch.zeros((b, nv), dtype=torch.float32,
+                                       device=labels.device),
+                           mask.to(torch.float32)], 1)
+    w = tfm.unembed_matrix(model, cfg)
+    return base.cross_entropy_chunked(
+        lambda xs: base.matmul(xs, w, train=True), x, full_labels,
+        full_mask, chunk=cfg.ce_chunk, final_cap=cfg.final_logit_cap)
 
 
 def vlm_prefill(model, image_embeds, tokens, cfg: ArchConfig, s_cap=None):

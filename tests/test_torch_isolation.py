@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no jax, nothing of the reference package.
 
 ``src/repro_torch/**.py``, ``chip_smoke.py``,
-``scripts/row_tiles_bench.py`` and ``scripts/decode_drift.py`` (all run
-on a machine without jax) may
+``scripts/row_tiles_bench.py``, ``scripts/decode_drift.py`` and
+``scripts/train_aten_calls.py`` (all run on a machine without jax) may
 import torch, numpy, the standard library, ``repro_torch`` and
 ``chip_smoke`` -- never ``jax`` or ``repro``.
 """
@@ -28,14 +28,16 @@ def _imported_roots(path):
 def test_no_jax_or_reference_imports_in_the_port():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "row_tiles_bench.py",
-              ROOT / "scripts" / "decode_drift.py"]
+              ROOT / "scripts" / "decode_drift.py",
+              ROOT / "scripts" / "train_aten_calls.py"]
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for sub in ("core", "core/bank", "designs", "kernels/bank_fold",
                 "kernels/mcim_fold", "kernels/prefix_adder",
                 "kernels/karatsuba_ppm", "kernels/int8_matmul", "quant",
                 "optim", "verify", "autotune", "serving", "exact", "rng",
-                "data", "configs", "models", "launch"):
+                "data", "configs", "models", "launch", "checkpoint",
+                "runtime"):
         assert any(f.parent == port / sub for f in files), sub
     bad =[f"{f.relative_to(ROOT)}:{line}: {mod}"
            for f in files for line, mod in _imported_roots(f)
@@ -99,9 +101,21 @@ def test_port_imports_with_jax_and_reference_blocked():
             "eng = serve.ServeEngine(m, 2, 4, 12)\n"
             "serve.serve(eng, [np.arange(4)] * 3, 2)\n"
             "assert eng.arrival_trace() == (0, 0, 2)\n"
+            "import tempfile\n"
+            "from repro_torch import checkpoint, optim, runtime\n"
+            "from repro_torch.launch import train as launch_train\n"
+            "from repro_torch.optim import adafactor\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    res = launch_train.main(['--smoke', '--steps', '2', "
+            "'--device', 'cpu', '--no-resume', '--checkpoint-dir', d])\n"
+            "    assert checkpoint.CheckpointManager(d).latest_step() == 2\n"
+            "assert res.final_step == 2 and res.skipped_steps == 0\n"
+            "assert isinstance(optim.AdamWConfig(), optim.AdamWConfig)\n"
+            "assert runtime.TrainerConfig().steps == 100\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n")
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "2"}
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -176,8 +176,16 @@ def test_template_and_param_count(arch, smoke):
 
 
 def test_train_loss_is_not_ported():
-    model = build_model(TCFG.get_config("qwen3-32b", smoke=True), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``train_loss`` once raised ``NotImplementedError``; now it takes
+    a batch and returns the mean cross-entropy, a finite float32 scalar
+    (its parity with the reference: ``test_torch_train_loss.py``)."""
+    cfg = TCFG.get_config("qwen3-32b", smoke=True)
+    model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(tokens(cfg.vocab_size, 64))
+    loss = model.train_loss({"tokens": toks, "labels": toks})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert math.isfinite(float(loss))
+    with pytest.raises(KeyError):
         model.train_loss({})
 
 
