@@ -138,7 +138,7 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    group and a tail, vocab 512, 4 experts; widths full) on the card
    against the CPU with the same weights (``params_from_numpy`` of the
    card's weights as numpy): logits within 0.1 of the std; the MoE
-   cuts' expert-choice prefill and ``moe.combine`` bit-equal across two
+   cuts' expert-choice prefill and its combine bit-equal across two
    card calls; the SSM cuts' decode = prefill within the reference's
    tolerances (0.05, 0.12).  No kernel of phases 2-7 lies on this path.
 10. Training, through ``launch.train.main`` (``Model.train_loss``,
@@ -162,6 +162,43 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    parameters, moments and step of its last checkpoint, equal an
    uninterrupted run's bit for bit.  No kernel of phases 2-7 lies on
    this path.
+11. The mesh path (``torch.distributed`` DTensor), in spawned worlds
+   (NCCL with a card a rank, else gloo with the ranks sharing the card;
+   store under ``build/chip_smoke/``).  (a) One rank on a (1, 1) mesh:
+   gemma3-1b at full width and depth, 3 steps of 4 x 1,024 pattern
+   tokens through ``make_train_step(mesh=...)`` against the mesh-less
+   step from the same init and batches: losses, parameters and AdamW
+   moments bit for bit, step times and peak memory side by side.  (b) Four ranks on a (2, 2)
+   ("data", "model") mesh, after a probe of the four collectives the
+   step issues on CUDA tensors: gemma3-1b at full width and depth, 8
+   steps of 4 x 512 tokens; gates: (i) every parameter and moment at
+   ``param_specs``' placements, (ii) the first step's loss and every
+   gradient (``full_tensor``) against the mesh-less step on the card,
+   float32 within 1e-4 a leaf and bf16 within max(2e-2, twice the
+   mesh-less bf16 gradient's own error), (iii) the ranks' losses bit
+   for bit, (iv) the loss falls (the mean of the first and last 3),
+   (v) one sync a step of the step's own (``set_sync_debug_mode``; the
+   backend's are counted apart); it prints the step time and the
+   collectives of a step (``CommDebugMode``).
+   (c) The world as (1, 4): ``flash_attention_context_parallel`` at
+   gemma3-1b's attention shapes (B 1, S 4,096, H 4, KV 1, hd 256, bf16),
+   causal and local 512: each rank's slice equals its own
+   ``flash_attention`` call bit for bit, the whole within 0.05 of the
+   full attention.  (d) llama4-scout's MoE block at full width (one
+   layer), ``moe_local_dispatch``, 4 x 256 tokens on (2, 2):
+   ``moe_apply(mesh=)`` against one process's ``moe_apply(groups=2)`` on
+   the same tokens: the router logits bit for bit (the witness that the
+   routing is one process's), x + moe(x) within one ulp for each bf16
+   rounding the two make apart (the routed sum, the shared expert,
+   their sum, the residual's; the CPU tests' rule counts two), the
+   z-loss within 1e-5.  (e) ``launch.train --model-parallel
+   2`` (the 100m preset on gemma3-1b's family, 4 steps of 8 x 256) on
+   the world: the launcher's (2, 2) mesh, the ranks' losses bit for bit,
+   within 1e-3 of the same ``launch.train`` run mesh-less in the main
+   process, the checkpoints written from the mesh.  Gloo worlds route
+   the functional all-gather through c10d's (``route_gloo_all_gather``),
+   so 11b-e run that routing.  No kernel of phases 2-7 lies on this
+   path.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -239,6 +276,21 @@ STEP_SYNCS = 1                     # the train step's one read of the card
 TRAIN_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 TRAIN_F32_GRAD_RTOL = 1e-4
 TRAIN_BF16_GRAD_RTOL = 2e-2
+#: phase 11: the mesh path's worlds
+MESH_WORLD = 4
+MESH_LIMIT_S = 480
+#: gemma3-1b: 11a at (1, 1) and 11b at (2, 2) ("data", "model")
+GEMMA3_MESH = {"batch": 4, "seq_a": 1024, "steps_a": 3, "seq_b": 512,
+               "steps_b": 8, "layers_b": 26, "falls": 3}
+#: 11c: gemma3-1b's attention shapes, one sequence of 4,096
+CP_SHAPE = {"B": 1, "S": 4096, "H": 4, "KV": 1, "D": 256, "window": 512}
+#: 11d: llama4-scout MoE block tokens (B, S)
+LLAMA4_MESH_TOKENS = (4, 256)
+#: 11e: launch.train on the (2, 2) world (--model-parallel 2) and alone
+LAUNCH_MESH_ARGS = ["--arch", "gemma3-1b", "--preset", "100m", "--steps",
+                    "4", "--seq-len", "256", "--global-batch", "8",
+                    "--source", "pattern", "--device", "cuda", "--no-resume",
+                    "--checkpoint-every", "2"]
 
 
 def check(cond, msg):
@@ -2038,8 +2090,8 @@ def families_cuts(device, smi):
                                for _ in range(cfg.n_experts)])
             y = torch.randn((cfg.n_experts, t, cfg.d_model), generator=gen,
                             device=device).to(torch.bfloat16)
-            check(torch.equal(moe.combine(y, idx, t),
-                              moe.combine(y, idx, t)),
+            check(torch.equal(moe._group_combine(y[None], idx[None], t),
+                              moe._group_combine(y[None], idx[None], t)),
                   f"{name}: expert-choice combine differs between calls")
             extra = (f"; prefill logits and the combine of {cfg.n_experts}"
                      f" x {t} rows (every token from every expert) "
@@ -2422,6 +2474,631 @@ def phase_training(device, smi):
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
 
+def mesh_backend(world):
+    """NCCL with a card a rank; else gloo, the ranks sharing card 0 (NCCL
+    refuses two ranks on one card; gloo stages CUDA tensors through host
+    memory)."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+_GLOO_ROUTE = []
+
+
+def route_gloo_all_gather():
+    """torch 2.11's gloo backend segfaults in the coalesced all-gather
+    that the functional ``all_gather_into_tensor`` (DTensor's Shard ->
+    Replicate) runs on CUDA tensors, while c10d's own
+    ``all_gather_into_tensor`` on the same tensors works
+    (``scripts/gloo_cuda_probe.py``): route the functional op's CUDA
+    kernel through the latter.
+    Only for gloo with the ranks sharing a card; NCCL needs nothing."""
+    import torch.distributed as dist
+
+    def gather(local, group_size, group_name):
+        group = dist.distributed_c10d._resolve_process_group(group_name)
+        out = local.new_empty((local.shape[0] * group_size,
+                               *local.shape[1:]))
+        dist.all_gather_into_tensor(out, local.contiguous(), group=group)
+        return out
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, "CUDA")
+    _GLOO_ROUTE.append(lib)            # the registration lives with it
+
+
+def mesh_rank(rank, world, init, out_path, part):
+    """One rank of phase 11's worlds: ``part`` "a" (one rank) or "bcde"
+    (four); rank 0 writes the results as JSON."""
+    import torch.distributed as dist
+    n_cards = torch.cuda.device_count()
+    dev = torch.device("cuda", rank % n_cards)
+    torch.cuda.set_device(dev)
+    backend = mesh_backend(world)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_LIMIT_S))
+    if backend == "gloo":
+        route_gloo_all_gather()
+    try:
+        res = {"backend": backend, "parts_s": {}}
+        parts = [mesh_one_rank] if part == "a" else [
+            mesh_probe, mesh_train, mesh_context_parallel,
+            mesh_local_experts, mesh_launch_train]
+        for fn in parts:
+            t0 = time.perf_counter()
+            fn(dev, rank, world, res)
+            res["parts_s"][fn.__name__] = time.perf_counter() - t0
+            if rank == 0:           # progress, should a later part fail
+                print(f"  [{fn.__name__}: {res['parts_s'][fn.__name__]:.1f}"
+                      f" s]", flush=True)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_steps(model, opt, batches, mesh=None):
+    """(losses, per-step seconds, AdamW state, step function) of
+    ``make_train_step`` over ``batches`` from a fresh AdamW state."""
+    import torch.distributed as dist
+    from repro_torch.data import device_batch
+    from repro_torch.optim import init_state
+    from repro_torch.runtime import make_train_step
+    step = make_train_step(model, opt, mesh=mesh)
+    state = init_state(dict(model.named_parameters()))
+    losses, seconds = [], []
+    for b in batches:
+        if mesh is not None:
+            b = device_batch(b, mesh=mesh)
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, b)["loss"])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, state, step
+
+
+def mesh_one_rank(dev, rank, world, res):
+    """11a: gemma3-1b at full width and depth on a (1, 1) mesh against
+    the mesh-less step from the same init and batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig
+    g = GEMMA3_MESH
+    cfg = get_config("gemma3-1b")
+    src = make_source(DataConfig(cfg.vocab_size, g["seq_a"], g["batch"],
+                                 source="pattern"), device=dev)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                src.batch_at(i).items()} for i in range(g["steps_a"])]
+    opt = AdamWConfig(warmup_steps=1, total_steps=10)
+    plain, _ = built(cfg, dev, SEED + 500)
+    torch.cuda.reset_peak_memory_stats()
+    p_loss, p_sec, p_state, _ = mesh_steps(plain, opt, batches)
+    p_peak = peak_gib()
+    meshed, _ = built(cfg, dev, SEED + 500)
+    mesh = make_host_mesh(1)
+    torch.cuda.reset_peak_memory_stats()
+    m_loss, m_sec, m_state, _ = mesh_steps(meshed, opt, batches, mesh)
+    m_peak = peak_gib()
+
+    def same(a, b):
+        a = a.to_local() if hasattr(a, "to_local") else a
+        return torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+    differ, worst = [], 0.0
+    pairs = [(n, p, dict(plain.named_parameters())[n])
+             for n, p in meshed.named_parameters()]
+    pairs += [(f"{k}/{n}", m_state[k][n], p_state[k][n]) for k in ("m", "v")
+              for n in p_state[k]]
+    for name, a, b in pairs:
+        if not same(a, b):
+            differ.append(name)
+            worst = max(worst, rel_l2(a.to_local().float(), b.float()))
+    res.update(a_losses=[m_loss, p_loss], a_seconds=[m_sec, p_sec],
+               a_peak=[m_peak, p_peak], a_leaves=len(pairs),
+               a_differ=differ, a_worst=worst,
+               a_params=meshed.param_count())
+
+
+def mesh_probe(dev, rank, world, res):
+    """The collectives the DTensor step issues, on CUDA tensors over this
+    world's backend; a missing one fails the phase."""
+    import torch.distributed as dist
+    x = torch.arange(8, dtype=torch.float32, device=dev) + dist.get_rank()
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * world, device=dev), x),
+        "reduce_scatter": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // world, device=dev), x),
+        "all_to_all": lambda: dist.all_to_all_single(
+            torch.empty(8, device=dev), x),
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:            # recorded, then the phase fails
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    res["probe"] = out
+    check(all(v == "ok" for v in out.values()),
+          f"phase 11: collectives on CUDA tensors: {out}")
+
+
+def mesh_grads(model, batch, mesh=None):
+    """(loss, {name: float32 full gradient}) of ``train_loss``."""
+    from repro_torch.data import device_batch
+    from repro_torch.optim.adamw import placed_like
+    model.requires_grad_(True)
+    named = dict(model.named_parameters())
+    b = batch if mesh is None else device_batch(batch, mesh=mesh)
+    loss = model.train_loss(b, mesh)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    if mesh is not None:
+        grads = [g.full_tensor() for g in placed_like(
+            named, dict(zip(named, grads))).values()]
+    return float(loss), {n: g.float() for n, g in zip(named, grads)}
+
+
+def mesh_train(dev, rank, world, res):
+    """11b: gemma3-1b at full width on a (2, 2) mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, device_batch, make_source
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.base import placements
+    from repro_torch.optim import AdamWConfig
+    g = GEMMA3_MESH
+    cfg = get_config("gemma3-1b", n_layers=g["layers_b"])
+    mesh = make_host_mesh(2)
+    src = make_source(DataConfig(cfg.vocab_size, g["seq_b"], g["batch"],
+                                 source="pattern"), device=dev)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                src.batch_at(i).items()} for i in range(g["steps_b"])]
+    t0 = time.perf_counter()
+    # (ii) the first step's loss and gradients, float32 and bf16
+    grads = {}
+    for tag in ("f32", "bf16"):
+        model = build_model(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(SEED + 501))
+        if tag == "f32":
+            model.float()
+        model.distribute_(mesh)
+        grads[tag] = mesh_grads(model, batches[0], mesh)
+        del model
+        free()
+        if rank == 0:
+            model = build_model(cfg, dev).init(
+                torch.Generator(device=dev).manual_seed(SEED + 501))
+            if tag == "f32":
+                model.float()
+            grads["plain_" + tag] = mesh_grads(model, batches[0])
+            del model
+            free()
+    if rank == 0:
+        truth = grads["plain_f32"][1]
+        errs = {}
+        for n, t in truth.items():
+            errs[n] = (rel_l2(grads["f32"][1][n], t),
+                       rel_l2(grads["bf16"][1][n], t),
+                       rel_l2(grads["plain_bf16"][1][n], t))
+        res["b_grad"] = {
+            "losses": {k: v[0] for k, v in grads.items()},
+            "f32_worst": max(errs.items(), key=lambda kv: kv[1][0]),
+            "bf16_bad": [(n, e) for n, e in errs.items()
+                         if e[1] > max(TRAIN_BF16_GRAD_RTOL, 2 * e[2])],
+            "bf16_worst_ratio": max(e[1] / max(TRAIN_BF16_GRAD_RTOL,
+                                               2 * e[2])
+                                    for e in errs.values()),
+            "leaves": len(errs)}
+    del grads
+    free()
+    grad_s = time.perf_counter() - t0
+    # the training run: placements (i), bits across ranks (iii), the
+    # loss falls (iv), one sync a step (v), the collectives of a step
+    model = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED + 502))
+    torch.cuda.reset_peak_memory_stats()
+    # at 2,048 tokens a step the full vocabulary's loss moves little: a
+    # warm-up to 1e-3 and a cosine over the run, judged as phase 10
+    # judges (the mean of the first and the last steps)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=g["steps_b"])
+    losses, seconds, state, step = mesh_steps(model, opt, batches, mesh)
+    peak = peak_gib()
+    specs = model.param_specs(mesh)
+    placed = all(p.placements == placements(specs[n], mesh)
+                 and state["m"][n].placements == p.placements
+                 and state["v"][n].placements == p.placements
+                 for n, p in model.named_parameters())
+    n_sharded = sum(any(pl.is_shard() for pl in p.placements)
+                    for p in model.parameters())
+    everyone = [None] * world
+    dist.all_gather_object(everyone, losses)
+    b = device_batch(batches[0], mesh=mesh)
+    comm = CommDebugMode()
+    with comm:
+        step(state, b)
+    counts = {str(k).split(".")[-1]: v
+              for k, v in comm.get_comm_counts().items()}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        caught.clear()
+        try:
+            step(state, b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    # the step's own reads, apart from the backend's (gloo stages CUDA
+    # tensors through the host inside torch.distributed)
+    own = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in syncs
+           if f"{os.sep}distributed{os.sep}" not in w.filename]
+    syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in syncs]
+    res.update(b_losses=everyone, b_seconds=seconds, b_peak=peak,
+               b_placed=placed, b_sharded=n_sharded,
+               b_leaves=len(specs), b_comm=counts, b_syncs=syncs,
+               b_own_syncs=own, b_grad_s=grad_s,
+               b_params=model.param_count())
+    del model, state, step
+    free()
+
+
+def mesh_context_parallel(dev, rank, world, res):
+    """11c: context-parallel attention at gemma3-1b's attention shapes on
+    the world reshaped to (1, 4)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models.attention import (
+        flash_attention, flash_attention_context_parallel)
+    from repro_torch.models.base import distribute, placements
+    c = CP_SHAPE
+    mesh = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 503)
+    q = torch.randn((c["B"], c["S"], c["H"], c["D"]), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((c["B"], c["S"], c["KV"], c["D"]), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    whole = placements((None,) * 4, mesh)
+    s_loc, off = c["S"] // world, rank * (c["S"] // world)
+    out = {}
+    for kind, window in (("causal", None), ("local", c["window"])):
+        kw = dict(mask_kind=kind, window=window, q_chunk=512, k_chunk=512)
+        o = flash_attention_context_parallel(
+            distribute(q, mesh, whole), distribute(k, mesh, whole),
+            distribute(v, mesh, whole), mesh, **kw)
+        cp_ms = event_ms(lambda: flash_attention_context_parallel(
+            distribute(q, mesh, whole), distribute(k, mesh, whole),
+            distribute(v, mesh, whole), mesh, **kw), 3)
+        k_off, klen = 0, c["S"]
+        if kind == "local":
+            klen = min(c["S"], s_loc + -(-window // 512) * 512)
+            k_off = min(max(off + s_loc - klen, 0), c["S"] - klen)
+        mine = flash_attention(
+            q[:, off:off + s_loc], k[:, k_off:k_off + klen],
+            v[:, k_off:k_off + klen], mask_kind=kind, window=window,
+            q_chunk=min(512, s_loc), k_chunk=512, schedule="masked",
+            q_offset=off, k_offset=k_off)
+        bits = torch.equal(o.to_local().view(torch.int16),
+                           mine.view(torch.int16))
+        full = o.full_tensor()
+        entry = {"bits": bits, "cp_ms": cp_ms}
+        if rank == 0:
+            ref = flash_attention(q, k, v, **kw)
+            entry["full_ms"] = event_ms(
+                lambda: flash_attention(q, k, v, **kw), 3)
+            entry["max_abs"] = (full.float() - ref.float()).abs().max() \
+                .item()
+        out[kind] = entry
+        check(bits, f"11c {kind}: rank {rank}'s slice != its own "
+              f"flash_attention")
+    res["c"] = out
+
+
+def mesh_local_experts(dev, rank, world, res):
+    """11d: llama4-scout's MoE block at full width (one layer's worth),
+    ``moe_apply(mesh=)`` with shard-local expert choice on the (2, 2)
+    mesh against one process's ``moe_apply(groups=2)`` on the same
+    tokens, with the normed tokens and router logits as witnesses."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import base, moe
+    from repro_torch.models.api import _Block
+    cfg = get_config("llama4-scout-17b-a16e", moe_local_dispatch=True)
+    mesh = make_host_mesh(2)
+    block = _Block(moe.moe_template(cfg), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 504)
+    with torch.no_grad():
+        for name, spec in base.leaves(moe.moe_template(cfg)):
+            node = block
+            for key in name:
+                node = getattr(node, key)
+            base.initialize_(node, spec, gen)
+    tokens = LLAMA4_MESH_TOKENS
+    x = (torch.randn((*tokens, cfg.d_model), generator=gen, device=dev)
+         * 0.5).to(torch.bfloat16)
+
+    def tree(node, tpl, fn):
+        """The block's parameters as a namespace, each through fn."""
+        out = types.SimpleNamespace()
+        for key, sub in tpl.items():
+            v = getattr(node, key)
+            setattr(out, key, fn(v.detach(), sub) if base.is_param(sub)
+                    else tree(v, sub, fn))
+        return out
+    tpl = moe.moe_template(cfg)
+    pm = tree(block, tpl, lambda v, sub: base.distribute(
+        v, mesh, base.placements(base.resolve_logical(
+            sub.logical, sub.shape, mesh), mesh)))
+    xd = base.distribute(x, mesh, base.placements(base.P(("data",)), mesh))
+    b, t = tokens
+    tl, e = b * t // 2, cfg.n_experts
+    cl = max(1, tl * cfg.top_k // e)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, zloss = moe.moe_apply(pm, xd, cfg, train=True, mesh=mesh)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        # the witnesses: the normed tokens, the router logits and each
+        # data shard's picks (the mesh dispatch's own _route) on the mesh
+        xn = base.rms_norm(xd, pm.norm, cfg.norm_eps)
+        logits = moe.router_logits(xn, pm.router, mesh)
+        picks = base.local_map(
+            lambda xl, lg: moe._route(xl.reshape(1, tl, -1),
+                                      lg.reshape(1, tl, e), cl)[2],
+            mesh, (xn, logits), xn.placements)
+        got, xn, logits, picks = (t.full_tensor()
+                                  for t in (out, xn, logits, picks))
+    if rank == 0:
+        with torch.no_grad():
+            want, w_zloss = moe.moe_apply(block, x, cfg, train=True,
+                                          groups=2)
+            w_xn = base.rms_norm(x, block.norm, cfg.norm_eps)
+            w_logits = moe.router_logits(w_xn, block.router)
+            w_picks = moe._route(w_xn.reshape(2, tl, -1),
+                                 w_logits.reshape(2, tl, e), cl)[2]
+            # float32 truth with the same routing (the bf16 path's
+            # logits): the block's weights and normed tokens in float32
+            f32 = tree(block, tpl, lambda v, sub: v.float())
+            xn32 = base.rms_norm(x.float(), f32.norm, cfg.norm_eps)
+            update = moe._expert_choice_local(f32, xn32, w_logits, cfg, 2,
+                                              train=True) \
+                + base.swiglu(xn32, f32.shared.w_gate, f32.shared.w_up,
+                              f32.shared.w_down, True)
+            truth = x.float() + update
+
+        def err(v):            # relative L2 against the float32 update
+            return ((v.float() - truth).norm() / update.norm()).item()
+
+        def ulp(v):            # tests/test_torch_moe.py's one-ulp rule
+            return 2.0 ** -7 * v.abs().clamp_min(2.0 ** -6)
+        g, w = got.float(), want.float()
+        d = (g - w).abs()
+        res["d"] = {
+            "xn_differ": int((xn.view(torch.int16)
+                              != w_xn.view(torch.int16)).sum()),
+            "logits_differ": int((logits != w_logits).sum()),
+            "logits_max": (logits - w_logits).abs().max().item(),
+            "picks_differ": int((picks != w_picks).sum()),
+            "picks": picks.numel(),
+            "out_differ": int((got.view(torch.int16)
+                               != want.view(torch.int16)).sum()),
+            "err_mesh": err(got), "err_one": err(want),
+            "ulp_worst": (d / (ulp(w) + ulp(w - x.float()))).max().item(),
+            "err_std": (d.max() / w.std()).item(),
+            "zloss": [float(zloss), float(w_zloss)],
+            "mesh_s": mesh_s, "elements": got.numel(),
+            "bytes": sum(p.numel() * p.element_size()
+                         for p in block.parameters())}
+
+
+def mesh_launch_train(dev, rank, world, res):
+    """11e: ``launch.train --model-parallel 2`` on the world (the
+    launcher builds the (2, 2) mesh from the process group) into a
+    checkpoint directory that rank 0 names."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as LT
+    ckpt = [tempfile.mkdtemp(dir=ROOT / "build" / "chip_smoke")
+            if rank == 0 else None]
+    dist.broadcast_object_list(ckpt)
+    try:
+        out = LT.main(LAUNCH_MESH_ARGS + ["--model-parallel", "2",
+                                          "--checkpoint-dir", ckpt[0]])
+        everyone = [None] * world
+        dist.all_gather_object(everyone, out.losses)
+        dist.barrier()
+        if rank == 0:
+            res["e"] = {"losses": everyone, "seconds": out.step_seconds,
+                        "final_step": out.final_step,
+                        "skipped": out.skipped_steps,
+                        "saved": CheckpointManager(ckpt[0]).latest_step()}
+    finally:
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(ckpt[0], ignore_errors=True)
+
+
+def phase_mesh(smi):
+    """Phase 11: the mesh path in spawned worlds (the main process keeps
+    no process group: phase 10's ``launch.train`` reads the world)."""
+    import torch.multiprocessing as mp
+    print(f"phase 11: the mesh path (DTensor) [{smi}]")
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    results = {"launch_meshless": launch_meshless()}
+    for part, world in (("a", 1), ("bcde", MESH_WORLD)):
+        store = work / f"mesh_store.{os.getpid()}.{part}"
+        out = work / f"mesh_world.{os.getpid()}.{part}"
+        for f in (store, out):
+            f.unlink(missing_ok=True)
+        t1 = time.perf_counter()
+        ctx = mp.spawn(mesh_rank, args=(world, f"file://{store}", str(out),
+                                        part), nprocs=world, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t1 > MESH_LIMIT_S:
+                    raise RuntimeError(f"phase 11{part}: the world passed "
+                                       f"{MESH_LIMIT_S} s")
+            results[part] = json.loads(out.read_text())
+            results[part]["wall_s"] = time.perf_counter() - t1
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+            for f in (store, out):
+                f.unlink(missing_ok=True)
+    report_mesh(results, smi)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+
+def launch_meshless():
+    """11e's reference: the same ``launch.train`` run in this process,
+    no process group, no mesh: (losses, step seconds)."""
+    from repro_torch.launch import train as LT
+    ckpt = tempfile.mkdtemp(dir=ROOT / "build" / "chip_smoke")
+    try:
+        res = LT.main(LAUNCH_MESH_ARGS + ["--checkpoint-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    free()
+    return res.losses, res.step_seconds
+
+
+def report_mesh(results, smi):
+    """Phase 11's gates and figures."""
+    a, w = results["a"], results["bcde"]
+    g = GEMMA3_MESH
+    (m_loss, p_loss), (m_sec, p_sec) = a["a_losses"], a["a_seconds"]
+    check(all(np.isfinite(m_loss)), f"11a: losses {m_loss}")
+    # a (1, 1) mesh runs the mesh-less step's local ops: bit for bit
+    check(not a["a_differ"],
+          f"11a: {len(a['a_differ'])} leaves differ ({a['a_differ'][:5]}),"
+          f" worst relative L2 {a['a_worst']}")
+    check(m_loss == p_loss, f"11a: losses {m_loss} != mesh-less {p_loss}")
+    print(f"  11a (1, 1) mesh, {a['backend']}: gemma3-1b full width and "
+          f"depth ({a['a_params']:,} parameters), {g['steps_a']} steps of "
+          f"{g['batch']} x {g['seq_a']}, remat: losses "
+          f"{'bit-equal' if m_loss == p_loss else 'differ'} to the "
+          f"mesh-less step ({', '.join(f'{v:.6f}' for v in m_loss)}); "
+          f"{a['a_leaves'] - len(a['a_differ'])} of {a['a_leaves']} "
+          f"parameter and moment leaves bit-equal"
+          + (f" (differ: {a['a_differ'][:5]}, worst relative L2 "
+             f"{a['a_worst']:.2e})" if a["a_differ"] else "")
+          + f"; step {statistics.median(m_sec[1:]) * 1e3:.1f} ms vs "
+          f"mesh-less {statistics.median(p_sec[1:]) * 1e3:.1f} ms "
+          f"(median of steps 1-{g['steps_a'] - 1}); peak "
+          f"{a['a_peak'][0]:.2f} GiB vs {a['a_peak'][1]:.2f} GiB; world "
+          f"{a['wall_s']:.1f} s [{smi}]")
+    print(f"  11b-d world: {MESH_WORLD} ranks, backend {w['backend']} "
+          f"(CUDA tensors); collectives probed: {w['probe']}")
+    gr = w["b_grad"]
+    check(abs(gr["losses"]["f32"] - gr["losses"]["plain_f32"])
+          <= TRAIN_LOSS_RTOL[torch.float32] * abs(gr["losses"]["plain_f32"])
+          and abs(gr["losses"]["bf16"] - gr["losses"]["plain_bf16"])
+          <= TRAIN_LOSS_RTOL[torch.bfloat16]
+          * abs(gr["losses"]["plain_bf16"]), f"11b (ii) losses {gr}")
+    check(gr["f32_worst"][1][0] <= TRAIN_F32_GRAD_RTOL,
+          f"11b (ii) float32 gradient {gr['f32_worst']}")
+    check(not gr["bf16_bad"], f"11b (ii) bf16 gradients {gr['bf16_bad']}")
+    per_rank = w["b_losses"]
+    check(w["b_placed"], "11b (i): placements differ from param_specs")
+    check(all(x == per_rank[0] for x in per_rank),
+          f"11b (iii): the ranks' losses differ {per_rank}")
+    fall = g["falls"]
+    first, last = (np.mean(per_rank[0][:fall]), np.mean(per_rank[0][-fall:]))
+    check(last < first, f"11b (iv): {per_rank[0]}")
+    check(len(w["b_own_syncs"]) == STEP_SYNCS,
+          f"11b (v): {w['b_own_syncs']} ({len(w['b_syncs'])} in all)")
+    print(f"  11b (2, 2) ('data', 'model'): gemma3-1b full width, "
+          f"{g['layers_b']} layers ({w['b_params']:,} parameters), "
+          f"{g['steps_b']} steps of {g['batch']} x {g['seq_b']}: (i) "
+          f"{w['b_leaves']} leaves at param_specs' placements, moments "
+          f"too ({w['b_sharded']} sharded, {w['b_leaves'] - w['b_sharded']}"
+          f" replicated); (ii) step-1 loss mesh/mesh-less "
+          f"{gr['losses']['f32']:.6f}/{gr['losses']['plain_f32']:.6f} "
+          f"(float32), {gr['losses']['bf16']:.6f}/"
+          f"{gr['losses']['plain_bf16']:.6f} (bf16); worst float32 "
+          f"gradient leaf {gr['f32_worst'][0]} {gr['f32_worst'][1][0]:.2e}"
+          f"; bf16 leaves within the rule ({gr['leaves']}), worst at "
+          f"{gr['bf16_worst_ratio']:.2f} of its bound; (iii) the 4 ranks' "
+          f"losses bit-equal ({', '.join(f'{v:.6f}' for v in per_rank[0])})"
+          f"; (iv) falls {first:.4f} -> {last:.4f} (the mean of the "
+          f"first and last {fall}); (v) {len(w['b_own_syncs'])} sync a "
+          f"step of the step's own ({', '.join(w['b_own_syncs'])}), "
+          f"{len(w['b_syncs'])} with the backend's; step "
+          f"{statistics.median(w['b_seconds'][1:]) * 1e3:.1f} ms (median "
+          f"of steps 1-{g['steps_b'] - 1}); collectives a step "
+          f"{w['b_comm']}; peak {w['b_peak']:.2f} GiB a rank; gradient "
+          f"checks {w['b_grad_s']:.1f} s [{smi}]")
+    for kind, e in w["c"].items():
+        check(e["max_abs"] < 0.05, f"11c {kind}: {e['max_abs']}")
+        print(f"  11c context parallel (1, {MESH_WORLD}), {kind}"
+              + (f" {CP_SHAPE['window']}" if kind == "local" else "")
+              + f": B {CP_SHAPE['B']}, S {CP_SHAPE['S']}, H {CP_SHAPE['H']},"
+              f" KV {CP_SHAPE['KV']}, hd {CP_SHAPE['D']}: every rank's "
+              f"slice = its flash_attention bit for bit; whole vs full "
+              f"max |d| {e['max_abs']:.4f} (< 0.05); {e['cp_ms']:.2f} ms "
+              f"a rank vs {e['full_ms']:.2f} ms whole [{smi}]")
+    d = w["d"]
+    bf16_bound = max(TRAIN_BF16_GRAD_RTOL, 2 * d["err_one"])
+    print(f"  11d llama4-scout MoE block, full width (reduced: n_layers "
+          f"48->1; {d['bytes'] / 1e9:.2f} GB), moe_local_dispatch, "
+          f"{LLAMA4_MESH_TOKENS[0]} x {LLAMA4_MESH_TOKENS[1]} tokens on "
+          f"(2, 2): moe_apply(mesh=) against one process's "
+          f"moe_apply(groups=2): normed tokens differ in "
+          f"{d['xn_differ']}, router logits in {d['logits_differ']} "
+          f"(max |d| {d['logits_max']:.3e}), the data shards' picks in "
+          f"{d['picks_differ']} of {d['picks']}; x + moe(x) differs in "
+          f"{d['out_differ']} of {d['elements']:,} elements (max |d| "
+          f"{d['err_std']:.4f} of the std, {d['ulp_worst']:.2f} of the "
+          f"CPU tests' one-ulp rule); against the float32 block with the "
+          f"same routing the update is off by {d['err_mesh']:.3e} "
+          f"(relative L2) on the mesh and {d['err_one']:.3e} in one "
+          f"process (bound {bf16_bound:.3e}); z-loss "
+          f"{d['zloss'][0]:.6f} / {d['zloss'][1]:.6f}; "
+          f"{d['mesh_s'] * 1e3:.1f} ms first call [{smi}]")
+    check(d["logits_differ"] == 0 and d["picks_differ"] == 0,
+          f"11d: the routing differs from one process's: logits in "
+          f"{d['logits_differ']}, picks in {d['picks_differ']}")
+    check(d["err_mesh"] <= bf16_bound, f"11d: the mesh's update is off by "
+          f"{d['err_mesh']} > {bf16_bound}")
+    check(abs(d["zloss"][0] - d["zloss"][1])
+          <= TRAIN_LOSS_RTOL[torch.float32] * abs(d["zloss"][1]),
+          f"11d: z-loss {d['zloss']}")
+    e = w["e"]
+    want, want_s = results["launch_meshless"]
+    per_rank = e["losses"]
+    steps = int(LAUNCH_MESH_ARGS[LAUNCH_MESH_ARGS.index("--steps") + 1])
+    check(e["final_step"] == steps and e["skipped"] == 0
+          and e["saved"] == steps, f"11e: {e}")
+    check(all(x == per_rank[0] for x in per_rank),
+          f"11e: the ranks' losses differ {per_rank}")
+    check(all(abs(x - y) <= TRAIN_LOSS_RTOL[torch.bfloat16] * abs(y)
+              for x, y in zip(per_rank[0], want)),
+          f"11e: {per_rank[0]} against mesh-less {want}")
+    print(f"  11e launch.train {' '.join(LAUNCH_MESH_ARGS[:8])} "
+          f"--model-parallel 2 on the world: (2, 2) mesh, the 4 ranks' "
+          f"losses bit-equal ({', '.join(f'{v:.6f}' for v in per_rank[0])})"
+          f", mesh-less launch.train ({', '.join(f'{v:.6f}' for v in want)})"
+          f" within {TRAIN_LOSS_RTOL[torch.bfloat16]:g}; checkpoint of step "
+          f"{e['saved']} written from the mesh; step "
+          f"{statistics.median(e['seconds'][1:]) * 1e3:.1f} ms vs mesh-less "
+          f"{statistics.median(want_s[1:]) * 1e3:.1f} ms (median of steps "
+          f"1-{steps - 1}); world {w['wall_s']:.1f} s [{smi}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2441,6 +3118,7 @@ def main():
     phase_models(device, smi)
     phase_families(device, smi)
     phase_training(device, smi)
+    phase_mesh(smi)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

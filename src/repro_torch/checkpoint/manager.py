@@ -162,10 +162,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like_tree, device=None):
+    def restore(self, step: int, like_tree, device=None, placements=None):
         """Restore into the structure of ``like_tree`` (leaves need only
         a ``shape``): CPU tensors in the saved dtypes, or on ``device``.
-        Every array's CRC32 is checked before it is used."""
+        Every array's CRC32 is checked before it is used.
+
+        ``placements`` (the reference's ``shardings=``): a tree of the
+        same structure whose leaves are ``(mesh, placements)`` or
+        ``None``; such a leaf comes back a DTensor on that mesh, each
+        rank keeping its chunk of the full array (on the mesh's device
+        unless ``device`` says otherwise), whatever mesh wrote it."""
         d = os.path.join(self.root, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -174,8 +180,10 @@ class CheckpointManager:
         missing = [n for n, _ in named if n not in by_name]
         if missing:
             raise ValueError(f"checkpoint missing arrays: {missing[:5]}")
+        where = [None] * len(named) if placements is None else \
+            [p for _, p in _flatten_with_names(placements)]
         out = []
-        for name, like in named:
+        for (name, like), place in zip(named, where):
             meta = by_name[name]
             arr = np.load(os.path.join(d, meta["file"]))
             if _crc32(arr) != meta["crc32"]:
@@ -185,5 +193,14 @@ class CheckpointManager:
                 raise ValueError(
                     f"{name}: shape {tuple(t.shape)} != expected "
                     f"{tuple(like.shape)}")
-            out.append(t if device is None else t.to(device))
+            if place is not None:
+                from ..models.base import distribute
+                mesh, pls = place
+                dev = device if device is not None else (
+                    torch.device("cuda", torch.cuda.current_device())
+                    if mesh.device_type == "cuda" else "cpu")
+                t = distribute(t.to(dev), mesh, pls)
+            elif device is not None:
+                t = t.to(device)
+            out.append(t)
         return _unflatten_like(like_tree, iter(out))

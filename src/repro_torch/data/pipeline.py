@@ -15,14 +15,17 @@ batches (``tokens``, ``labels``, ``mask``):
 
 The Philox draws run on ``device`` (the card unless the caller passes
 ``device="cpu"``); the batches they give are the same bits on either.
-:func:`device_batch` puts a host batch on one device.
+:func:`device_batch` puts a host batch on one device, or on a mesh as
+DTensors sharded over its data axes.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from ..rng import random_tokens, random_u32
@@ -56,7 +59,7 @@ class SyntheticLM:
                              f"divide over {host_count} hosts")
         self.cfg = cfg
         self.host_batch = cfg.global_batch // host_count
-        self.host_index = host_index
+        self.host_index, self.host_count = host_index, host_count
         self.device = resolve_device(device)
 
     def _arange(self, start: int, n: int) -> torch.Tensor:
@@ -102,7 +105,7 @@ class BinTokenFile:
         if self.n_windows < 1:
             raise ValueError("corpus shorter than one window")
         self.host_batch = cfg.global_batch // host_count
-        self.host_index = host_index
+        self.host_index, self.host_count = host_index, host_count
         self.device = resolve_device(device)
 
     def batch_at(self, step: int) -> dict:
@@ -128,10 +131,36 @@ def make_source(cfg: DataConfig, host_index: int = 0, host_count: int = 1,
     return BinTokenFile(cfg, host_index, host_count, device=device)
 
 
-def device_batch(batch: dict, device=None) -> dict:
+def device_batch(batch: dict, device=None, mesh=None,
+                 local: bool = False) -> dict:
     """Host batch -> tensors on ``device`` (the card unless the caller
-    passes ``device="cpu"``).  The one-device counterpart of the
-    reference's mesh placement; a replicated data axis comes with the
-    model stack."""
-    device = resolve_device(device)
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    passes ``device="cpu"``), or with a ``mesh`` DTensors on its device:
+    a leaf of ndim >= 1 at ``P(data axes)`` (its rows split over the
+    data axes, replicated over the model axis), a scalar at ``P()``.
+
+    ``local``: each rank holds only its own rows already (a source made
+    with ``host_index``/``host_count`` = its data coordinate and size),
+    which become its shard with no copy between ranks."""
+    if mesh is None:
+        device = resolve_device(device)
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in batch.items()}
+    from ..launch.mesh import data_axes
+    from ..models.base import P, distribute, placements
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
+    axes = data_axes(mesh)
+    shards = math.prod(mesh.size(mesh.mesh_dim_names.index(a))
+                       for a in axes)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v, device=device)
+        if t.ndim and not local and t.shape[0] % shards:
+            raise ValueError(f"batch leaf {k!r}: {t.shape[0]} rows do not "
+                             f"split over {shards} data shards")
+        pls = placements(P(axes) if t.ndim else P(), mesh)
+        if local and t.ndim:
+            out[k] = DTensor.from_local(t, mesh, pls, run_check=False)
+        else:
+            out[k] = distribute(t, mesh, pls)
+    return out

@@ -1,6 +1,7 @@
-"""Launch layer: the serving CLI (:mod:`.serve`) and the training CLI
-(:mod:`.train`).
+"""Launch layer: the serving CLI (:mod:`.serve`), the training CLI
+(:mod:`.train`), meshes (:mod:`.mesh`) and the runtime state's sharding
+rules (:mod:`.sharding`).
 
-The reference's meshes, sharding rules and dry-run are not ported yet
-(ROADMAP queue 1).
+The reference's dry run, HLO cost reader and roofline are not ported
+yet (ROADMAP queue 1).
 """

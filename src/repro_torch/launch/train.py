@@ -11,6 +11,16 @@ downloaded.  Examples:
   # ~100M-parameter run on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \\
       --preset 100m --steps 200 --seq-len 256 --global-batch 8
+
+  # four ranks, a (2, 2) ("data", "model") mesh (one card a rank)
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch gemma3-1b --model-parallel 2 --global-batch 8
+
+A world of several ranks (torch's launcher variables, or a process
+group the caller made) trains on ``launch.mesh.make_host_mesh`` with
+``--model-parallel`` ranks on the model axis; each data shard draws its
+own rows.  Under the launcher's variables each rank takes the card
+``LOCAL_RANK`` and NCCL (``--device cpu``: gloo on the CPU).
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ from ..device import resolve_device
 from ..models import build_model
 from ..optim import AdamWConfig
 from ..runtime import TrainerConfig, train
+from ..runtime.trainer import maybe_init_distributed
+from .mesh import make_host_mesh
 
 # ~100M-parameter preset wiring (applied on top of any arch's family)
 PRESET_100M = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
@@ -58,25 +70,33 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs the mesh path (ROADMAP queue 1 "
-            "item 2)")
+    maybe_init_distributed(args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.model_parallel > 1 and world == 1:
+        raise ValueError(f"--model-parallel {args.model_parallel} needs a "
+                         f"world of several ranks (torchrun)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.preset == "100m":
         cfg = dataclasses.replace(get_config(args.arch), **PRESET_100M)
     device = resolve_device(args.device)
     model = build_model(cfg, device)
-    print(f"[train] arch={cfg.name} params={model.param_count()/1e6:.1f}M "
-          f"family={cfg.family} device={device}")
+    mesh, shard, shards = None, 0, 1
+    if world > 1:
+        mesh = make_host_mesh(args.model_parallel, device.type)
+        shard, shards = mesh.get_coordinate()[0], mesh.size(0)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"[train] arch={cfg.name} "
+              f"params={model.param_count()/1e6:.1f}M family={cfg.family} "
+              f"device={device}"
+              + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                 if mesh is not None else ""))
 
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch, source=args.source,
                       path=args.data_path)
-    rank, world = ((dist.get_rank(), dist.get_world_size())
-                   if dist.is_initialized() else (0, 1))
-    src = make_source(data, host_index=rank, host_count=world, device=device)
+    src = make_source(data, host_index=shard, host_count=shards,
+                      device=device)
 
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                       total_steps=args.steps)
@@ -85,10 +105,13 @@ def main(argv=None):
                          exact_accum=args.exact_accum,
                          checkpoint_every=args.checkpoint_every,
                          checkpoint_dir=args.checkpoint_dir)
-    res = train(model, src, opt, tcfg, resume=not args.no_resume)
-    print(f"[train] done: step={res.final_step} "
-          f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f} "
-          f"skipped={res.skipped_steps} stragglers={len(res.straggler_steps)}")
+    res = train(model, src, opt, tcfg, resume=not args.no_resume,
+                mesh=mesh)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"[train] done: step={res.final_step} "
+              f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f} "
+              f"skipped={res.skipped_steps} "
+              f"stragglers={len(res.straggler_steps)}")
     return res
 
 

@@ -28,6 +28,12 @@ stacked trees of parameters, or of anything keyed by parameter name (the
 optimizer's moments), come and go through :func:`stack_tree`,
 :func:`unstack_tree`, :func:`params_from_numpy` and
 :func:`params_to_numpy`.
+
+On a ``torch.distributed`` mesh, :meth:`Model.param_specs` gives each
+parameter the reference's spec (its stacked leaf's, less the stack
+axes), :meth:`Model.distribute_` turns the parameters into DTensors at
+those placements (each rank keeps its chunk of the full, seeded values),
+and ``train_loss(batch, mesh)`` trains on DTensor batches.
 """
 from __future__ import annotations
 
@@ -98,6 +104,14 @@ def param_layout(cfg: ArchConfig) -> list:
     return out
 
 
+def param_specs(cfg: ArchConfig, mesh) -> dict:
+    """``{state-dict name: P}``: the reference's ``spec_tree`` entry of
+    each parameter's stacked leaf, less the stack axes (which resolve
+    to ``None``)."""
+    return {name: base.resolve_logical(p.logical, p.shape, mesh)
+            for name, _, _, p in param_layout(cfg)}
+
+
 class _Block(nn.Module):
     """A template dict's leaves as parameters (nested dicts as blocks);
     ``specs`` keeps each parameter's ``Param`` for :meth:`Model.init`."""
@@ -131,6 +145,7 @@ class Model(_Block):
                          device)
         self.cfg = cfg
         self.device = device
+        self.mesh = None                 # set by distribute_
         if cfg.family in ("ssm", "hybrid"):
             self.layers = nn.ModuleList(
                 _Block(ssm.ssm_template(cfg), device)
@@ -153,11 +168,51 @@ class Model(_Block):
     def init(self, generator: torch.Generator) -> "Model":
         """Seeded random init with the reference's initializers, drawn
         from ``generator`` (which must lie on the model's device), one
-        parameter at a time."""
+        parameter at a time (before :meth:`distribute_`)."""
         for block in self.modules():
             for name, spec in getattr(block, "specs", {}).items():
                 base.initialize_(getattr(block, name), spec, generator)
         return self
+
+    def param_specs(self, mesh) -> dict:
+        """:func:`param_specs` of the model's config."""
+        return param_specs(self.cfg, mesh)
+
+    @torch.no_grad()
+    def distribute_(self, mesh) -> "Model":
+        """Every parameter -> a DTensor on ``mesh`` (a ``DeviceMesh`` of
+        the model's device type) at :meth:`param_specs`' placements,
+        each rank keeping its chunk of the values it holds (the same
+        on every rank after a seeded :meth:`init`)."""
+        specs = self.param_specs(mesh)
+        for name, param in list(self.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            module.register_parameter(leaf, nn.Parameter(
+                base.distribute(param.data, mesh,
+                                base.placements(specs[name], mesh)),
+                requires_grad=param.requires_grad))
+        self.mesh = mesh
+        return self
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """``nn.Module.load_state_dict``; into a distributed model each
+        rank copies its chunk of the full tensors given."""
+        if self.mesh is None:
+            return super().load_state_dict(state_dict, strict, assign)
+        own = dict(self.named_parameters())
+        if strict and set(state_dict) != set(own):
+            raise RuntimeError(
+                f"state dict keys differ: missing "
+                f"{sorted(set(own) - set(state_dict))[:5]}, unexpected "
+                f"{sorted(set(state_dict) - set(own))[:5]}")
+        with torch.no_grad():
+            for name, t in state_dict.items():
+                p = own[name]
+                p.to_local().copy_(base.local_chunk(
+                    t.to(self.device), self.mesh, p.placements))
+        return None
 
     def param_count(self) -> int:
         return base.param_count(self.template())
@@ -221,23 +276,30 @@ class Model(_Block):
         """Zeroed caches of :meth:`cache_spec` on the model's device."""
         return tfm.init_cache(self.cache_spec(batch, s_cap), self.device)
 
-    def train_loss(self, batch):
+    def train_loss(self, batch, mesh=None):
         """Mean cross-entropy of ``batch``: ``tokens``, ``labels`` and
         an optional ``mask`` (the encoder: ``frames``, bool ``mask``,
         ``labels``; the VLM adds ``image_embeds``), as the reference's
         ``Model.train_loss``.  Gradients flow to the parameters that
-        require them."""
+        require them.  With a ``mesh`` the model is distributed on it
+        and the batch leaves are DTensors (``data.device_batch``); the
+        loss is then a plain tensor, the same bits on every rank."""
         f, cfg = self.cfg.family, self.cfg
-        batch = {k: torch.as_tensor(v, device=self.device)
-                 for k, v in batch.items()}
+        if mesh is None:
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in batch.items()}
+        elif self.mesh is not mesh:
+            raise ValueError("train_loss on a mesh the model is not "
+                             "distributed on (Model.distribute_)")
         if f in ("dense", "moe"):
             return tfm.lm_train_loss(self, batch, cfg,
-                                     embed_scale=_gemma_like(cfg))
+                                     embed_scale=_gemma_like(cfg),
+                                     mesh=mesh)
         if f in ("ssm", "hybrid"):
-            return hybrid.lm_train_loss(self, batch, cfg)
+            return hybrid.lm_train_loss(self, batch, cfg, mesh)
         if f == "encoder":
-            return encoder.encoder_train_loss(self, batch, cfg)
-        return vlm.vlm_train_loss(self, batch, cfg)
+            return encoder.encoder_train_loss(self, batch, cfg, mesh)
+        return vlm.vlm_train_loss(self, batch, cfg, mesh)
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:

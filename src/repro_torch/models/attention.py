@@ -30,6 +30,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+
+from .base import batch_placed, local_map, mesh_names, mesh_shape
 
 NEG_INF = -1e30
 
@@ -157,6 +160,51 @@ def flash_attention(q, k, v, *, mask_kind: str = "causal",
     out = torch.cat([(a / torch.clamp(n, min=1e-30)[..., None])
                      .permute(0, 3, 1, 2, 4) for n, a in zip(l, acc)], dim=1)
     return out.reshape(b, sq, h, d).to(dtype)
+
+
+def flash_attention_context_parallel(
+        q, k, v, mesh, *, mask_kind: str = "causal",
+        window: int | None = None, prefix_len: int | None = None,
+        logit_cap: float | None = None, q_chunk: int = 512,
+        k_chunk: int = 512):
+    """Context-parallel attention of DTensors q (B, S, H, D), k, v
+    (B, S, KV, D) on ``mesh``: q sharded over the sequence on the model
+    axis, k and v replicated over it (all batch-sharded over the data
+    axes, as they come).  Each rank computes its own sequence slice
+    with offset masks (``schedule="masked"``): no collective inside the
+    attention, its work divided by the model axis's size.  A
+    sliding-window layer's rank reads only the (S/n + window) keys it
+    can see.  Returns the output at q's placements.
+
+    With one rank on the model axis, or a sequence it does not divide,
+    this is :func:`flash_attention` on each rank's rows, all heads.
+    """
+    n = mesh_shape(mesh)["model"] if "model" in mesh_names(mesh) else 1
+    s = q.shape[1]
+    kw = dict(mask_kind=mask_kind, window=window, prefix_len=prefix_len,
+              logit_cap=logit_cap, k_chunk=k_chunk)
+    k, v = batch_placed(k, mesh, Replicate()), batch_placed(
+        v, mesh, Replicate())
+    if n <= 1 or s % n or (s // n) < 1:
+        q = batch_placed(q, mesh, Replicate())
+        return local_map(
+            lambda ql, kl, vl: flash_attention(ql, kl, vl, q_chunk=q_chunk,
+                                               **kw),
+            mesh, (q, k, v), q.placements)
+    s_loc = s // n
+    off = mesh.get_local_rank("model") * s_loc
+    k_off, klen = 0, s
+    if mask_kind == "local" and window is not None and window < s:
+        klen = min(s, s_loc + -(-window // k_chunk) * k_chunk)
+        k_off = min(max(off + s_loc - klen, 0), s - klen)
+
+    def local(ql, kl, vl):
+        return flash_attention(
+            ql, kl[:, k_off:k_off + klen], vl[:, k_off:k_off + klen],
+            q_chunk=min(q_chunk, s_loc), schedule="masked", q_offset=off,
+            k_offset=k_off, **kw)
+    q = batch_placed(q, mesh, Shard(1))
+    return local_map(local, mesh, (q, k, v), q.placements)
 
 
 def int_einsum(equation: str, a: torch.Tensor, b: torch.Tensor

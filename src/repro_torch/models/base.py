@@ -16,6 +16,29 @@ shape for every row count, so a row's bits do not depend on its batch
 (serving), or one call over all rows (training).
 :func:`cross_entropy_chunked` is the training loss's streamed
 cross-entropy.
+
+Sharding, as the reference's: ``resolve_logical`` maps a leaf's logical
+axes to a :class:`P` over a mesh's axis names ("batch" -> the data axes,
+"fsdp" -> "data", "model" -> "model"), dropping an axis whose size does
+not divide the dim.  On a ``torch.distributed`` ``DeviceMesh`` a spec
+becomes DTensor placements (:func:`placements`), :func:`constrain`
+becomes ``redistribute``, and the training path runs on DTensors:
+
+  * a parameter is gathered over the data axes where it is used
+    (:func:`gathered`, FSDP) and keeps its model-axis shard; a matmul
+    whose output comes back ``Partial`` over the model axis is reduced
+    at once (:func:`matmul`);
+  * a computation DTensor has no rule for (a lookup, the attention, the
+    expert dispatch, the SSD scan, the loss) runs on each rank's shards
+    through :func:`local_map`, which declares the gradient of an input
+    replicated over a mesh axis the computation splits ``Partial``;
+  * a scalar summed over the data axes goes through :func:`psum`, one
+    all-reduce over the flattened axes (:func:`mesh_group`), so every
+    rank holds the same bits.
+
+The helpers read only a mesh's axis names and sizes (a ``DeviceMesh``,
+or any object with ``axis_names`` and a ``shape`` dict, as the
+reference's meshes).
 """
 from __future__ import annotations
 
@@ -24,7 +47,9 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 
@@ -90,6 +115,243 @@ def param_count(template) -> int:
     return sum(math.prod(p.shape) for _, p in leaves(template))
 
 
+# ------------------------------------------------------------------ sharding
+
+class P(tuple):
+    """A partition spec, as ``jax.sharding.PartitionSpec``: one entry a
+    dim, ``None``, a mesh axis name or a tuple of names.  A tuple, so
+    ``tuple(spec)`` compares with the reference's."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+def mesh_names(mesh) -> tuple:
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` or a reference mesh."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def mesh_axes(mesh) -> dict:
+    """Map logical axis names -> physical mesh axes for this mesh."""
+    names = mesh_names(mesh)
+    data_axes = tuple(a for a in ("pod", "data") if a in names)
+    return {
+        "batch": data_axes if len(data_axes) != 1 else data_axes[0],
+        "fsdp": "data" if "data" in names else None,
+        "model": "model" if "model" in names else None,
+        "seq": None,            # overridden to "data" for long-ctx caches
+        "seq_data": data_axes if len(data_axes) != 1 else data_axes[0],
+        None: None,
+    }
+
+
+def axis_size(mesh, axes) -> int:
+    """The ranks over ``axes`` (a name, a tuple of names, or ``None``) of
+    ``mesh``: 1 off-mesh and for an axis the mesh lacks."""
+    if mesh is None or axes is None:
+        return 1
+    shape = mesh_shape(mesh)
+    return math.prod(shape.get(a, 1) for a in
+                     (axes if isinstance(axes, tuple) else (axes,)))
+
+
+def resolve_logical(logical: tuple, shape: tuple, mesh) -> P:
+    """Logical axes -> PartitionSpec with divisibility fallback."""
+    table = mesh_axes(mesh)
+    out = []
+    for dim, name in zip(shape, logical):
+        phys = table.get(name)
+        if phys is None or dim % axis_size(mesh, phys) != 0:
+            out.append(None)
+        else:
+            out.append(phys)
+    return P(*out)
+
+
+def spec_tree(template, mesh):
+    return _tree_map(lambda p: resolve_logical(p.logical, p.shape, mesh),
+                     template)
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(i)`` on each
+    mesh dim that entry ``i`` names (a tuple entry shards on each of its
+    axes, in order: the reference's device order), ``Replicate()`` on
+    every other."""
+    names = mesh_names(mesh)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        for name in entry if isinstance(entry, tuple) else (entry,):
+            if name is not None:
+                out[names.index(name)] = Shard(dim)
+    return tuple(out)
+
+
+def local_chunk(t: torch.Tensor, mesh, pls) -> torch.Tensor:
+    """This rank's chunk of the full tensor ``t`` at placements ``pls``
+    (shards split in mesh-dim order, as DTensor lays them out): a
+    view."""
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            t = t.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
+    return t
+
+
+def distribute(t: torch.Tensor, mesh, pls) -> DTensor:
+    """``t`` (the same full tensor on every rank) as a DTensor at
+    ``pls``: each rank keeps a copy of its own chunk, no collective."""
+    return DTensor.from_local(local_chunk(t, mesh, pls).clone(), mesh, pls,
+                              run_check=False)
+
+
+def shard_tree(tree, specs, mesh):
+    """A nest of dicts of full tensors -> DTensors at ``specs``."""
+    if not isinstance(tree, dict):
+        return distribute(tree, mesh, placements(specs, mesh))
+    return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+
+
+def constrain(x, mesh, *logical):
+    """``redistribute`` to the logical axes' placements (no-op off-mesh)."""
+    if mesh is None:
+        return x
+    spec = resolve_logical(tuple(logical), x.shape, mesh)
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def gathered(w):
+    """A parameter as a computation takes it: gathered over the data axes
+    (FSDP), its model-axis shard kept."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    pls = tuple(Replicate() if names[i] in ("pod", "data") else pl
+                for i, pl in enumerate(w.placements))
+    return w.redistribute(mesh, pls) if pls != tuple(w.placements) else w
+
+
+def reduced(x):
+    """``x`` with every ``Partial`` placement all-reduced."""
+    if not isinstance(x, DTensor) or \
+            not any(pl.is_partial() for pl in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if pl.is_partial() else pl for pl in x.placements))
+
+
+def on_model(pls, mesh, pl) -> tuple:
+    """Placements ``pls`` with ``pl`` on the model axis (if the mesh has
+    one)."""
+    pls = list(pls)
+    if "model" in mesh_names(mesh):
+        pls[mesh_names(mesh).index("model")] = pl
+    return tuple(pls)
+
+
+def model_sharded(t: DTensor, mesh) -> bool:
+    """``t`` is split over a model axis of more than one rank."""
+    names = mesh_names(mesh)
+    return "model" in names and mesh.size(names.index("model")) > 1 \
+        and t.placements[names.index("model")].is_shard()
+
+
+def batch_placed(x, mesh, model_pl):
+    """``x`` batch-sharded over the data axes (dim 0, where it divides)
+    with ``model_pl`` on the model axis."""
+    spec = resolve_logical(("batch",) + (None,) * (x.ndim - 1), x.shape,
+                           mesh)
+    return x.redistribute(mesh, on_model(placements(spec, mesh), mesh,
+                                         model_pl))
+
+
+def local_map(fn, mesh, args, out_placements=None):
+    """``fn`` on each rank's shards of ``args`` (DTensors at the
+    placements the computation needs; other values pass through) ->
+    DTensors at ``out_placements`` (one tuple of placements, or a list
+    of them for several outputs), or ``fn``'s plain result if ``None``.
+
+    The gradient of an input replicated over a mesh dim that the
+    computation splits (some input or output is sharded there, or an
+    output partial) comes back ``Partial`` there: each rank computed
+    only its share of it."""
+    outs = [] if out_placements is None else out_placements \
+        if isinstance(out_placements, list) else [out_placements]
+    split = {i for pls in [a.placements for a in args
+                           if isinstance(a, DTensor)] + outs
+             for i, pl in enumerate(pls) if not pl.is_replicate()}
+    local = []
+    for a in args:
+        if isinstance(a, DTensor):
+            grad = tuple(Partial() if pl.is_replicate() and i in split
+                         else pl for i, pl in enumerate(a.placements))
+            a = a.to_local(grad_placements=grad)
+        local.append(a)
+    out = fn(*local)
+    if out_placements is None:
+        return out
+    if isinstance(out_placements, list):
+        return tuple(DTensor.from_local(o, mesh, pl, run_check=False)
+                     for o, pl in zip(out, out_placements))
+    return DTensor.from_local(out, mesh, out_placements, run_check=False)
+
+
+_GROUPS = {}
+
+
+def mesh_group(mesh, axes: tuple):
+    """The process group over ``axes`` of ``mesh`` flattened (this
+    rank's), made once a mesh; every rank must ask at the same point."""
+    axes = tuple(a for a in mesh.mesh_dim_names if a in axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (mesh, axes)
+    if key not in _GROUPS:
+        names = mesh.mesh_dim_names
+        keep = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in keep]
+        ranks = mesh.mesh.permute(*rest, *keep).reshape(
+            -1, math.prod(mesh.size(i) for i in keep))
+        mine, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+        _GROUPS[key] = mine
+    return _GROUPS[key]
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce sum over ``group``; the backward passes the gradient
+    through (every rank holds the same sum and takes the same loss)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def psum(t: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """``t`` summed over ``axes`` of ``mesh`` (one all-reduce over the
+    flattened axes); ``t`` itself where they hold one rank."""
+    axes = tuple(a for a in axes if a in mesh.mesh_dim_names)
+    if axis_size(mesh, axes) == 1:
+        return t
+    return _SumOver.apply(t, mesh_group(mesh, axes))
+
+
 # ------------------------------------------------------------------ primitives
 
 #: rows of every matmul call :func:`matmul` makes
@@ -112,7 +374,13 @@ def matmul(x, w, train: bool = False):
     would cost precision: autograd would sum a bf16 weight's gradient
     from one bf16 piece a call, where one product over all rows (the
     reference's einsum) rounds it once.
+
+    A DTensor ``w`` (the mesh path, training only) is :func:`gathered`
+    and multiplied as one DTensor product; a ``Partial`` result (a
+    row-parallel weight) is all-reduced at once.
     """
+    if isinstance(w, DTensor):         # the mesh path (training)
+        return reduced(x @ gathered(w))
     if train:
         return x @ w
     lead, k = x.shape[:-1], x.shape[-1]
@@ -171,7 +439,7 @@ def gelu_mlp(x, w_in, w_out):
 
 
 def cross_entropy_chunked(logits_fn, x, labels, mask, chunk: int = 512,
-                          final_cap: float | None = None):
+                          final_cap: float | None = None, mesh=None):
     """Streamed mean cross-entropy over the positions ``mask`` weights.
 
     logits_fn: (B, c, D) -> (B, c, V).  The sequence runs in chunks of
@@ -182,11 +450,22 @@ def cross_entropy_chunked(logits_fn, x, labels, mask, chunk: int = 512,
     logit is a gather, the same float32 value as the reference's one-hot
     sum (every other term is zero).  Sums run in float32, chunk by
     chunk, as the reference's scan.
+
+    On a ``mesh`` (``x``, ``labels``, ``mask`` DTensors sharded over the
+    batch) the logits are constrained to ("batch", None, "model"); with
+    the vocabulary split over the model axis each rank takes its shard's
+    max and sum of exponents and the gold logit where the label lies in
+    its shard, each all-reduced over the model axis (one non-zero term:
+    the gold logit keeps its bits), and the loss and count are summed
+    over the data axes.
     """
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk:
         chunk = s  # fallback: single chunk
+    if mesh is not None:
+        return _cross_entropy_mesh(logits_fn, x, labels, mask, chunk,
+                                   final_cap, mesh)
 
     def body(xs, ls, ms):
         logits = softcap(logits_fn(xs), final_cap).to(torch.float32)
@@ -204,3 +483,71 @@ def cross_entropy_chunked(logits_fn, x, labels, mask, chunk: int = 512,
                                          use_reentrant=False)
         cnt = cnt + ms.sum()
     return loss_sum / torch.clamp(cnt, min=1.0)
+
+
+class _VocabLSE(torch.autograd.Function):
+    """``logsumexp`` over the last dim of logits whose vocabulary is
+    split over ``group`` (``None``: not split): torch's own formula and
+    gradient, ``log(sum(exp(l - max))) + max`` and ``g * exp(l - lse)``,
+    so an unsplit vocabulary gives ``torch.logsumexp``'s bits."""
+
+    @staticmethod
+    def forward(ctx, logits, group):
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        if group is not None:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        total = torch.exp(logits - m).sum(-1)
+        if group is not None:
+            dist.all_reduce(total, group=group)
+        out = torch.log(total) + m[..., 0]
+        ctx.save_for_backward(logits, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, out = ctx.saved_tensors
+        return grad[..., None] * torch.exp(logits - out[..., None]), None
+
+
+def _cross_entropy_mesh(logits_fn, x, labels, mask, chunk, final_cap,
+                        mesh):
+    model_n = axis_size(mesh, mesh_axes(mesh)["model"])
+
+    def body(xs, ls, ms):
+        logits = constrain(logits_fn(xs), mesh, "batch", None, "model")
+        logits = softcap(logits, final_cap).to(torch.float32)
+        split = model_n > 1 and logits.shape[-1] % model_n == 0
+        group = mesh_group(mesh, ("model",)) if split else None
+        v0 = mesh.get_local_rank("model") * (logits.shape[-1] // model_n) \
+            if split else 0
+
+        def nll(lg, lb, mk):
+            lse = _VocabLSE.apply(lg, group)
+            if group is None:
+                gold = lg.gather(-1, lb[..., None].long())[..., 0]
+            else:
+                idx = lb.long() - v0
+                mine = (idx >= 0) & (idx < lg.shape[-1])
+                gold = torch.where(mine, lg.gather(
+                    -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0],
+                    0.0)
+                gold = _SumOver.apply(gold, group)
+            return ((lse - gold) * mk).sum()
+        return local_map(nll, mesh, (logits, ls, ms))
+
+    mask = mask.to(torch.float32)
+    dev = mask.to_local().device
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(0, x.shape[1], chunk):
+        ms = mask[:, i:i + chunk]
+        loss_sum = loss_sum + checkpoint(body, x[:, i:i + chunk],
+                                         labels[:, i:i + chunk], ms,
+                                         use_reentrant=False)
+        cnt = cnt + ms.to_local().sum()
+    # the sum runs over the axes the batch is split over (a batch that
+    # does not divide is whole on every rank of the data axes)
+    data = tuple(mesh.mesh_dim_names[i]
+                 for i, pl in enumerate(labels.placements) if pl.is_shard())
+    both = psum(torch.stack([loss_sum, cnt]), mesh, data)
+    return both[0] / torch.clamp(both[1], min=1.0)

@@ -32,7 +32,7 @@ def encoder_templates(cfg: ArchConfig) -> dict:
     }
 
 
-def _encode(model, frames, mask, cfg: ArchConfig, mode: str):
+def _encode(model, frames, mask, cfg: ArchConfig, mode: str, mesh=None):
     """frames (B, T, D_FRONTEND); ``mask`` (B, T) bool or None: frames
     replaced by ``mask_embed``.  Returns the final-normed (B, T, D)."""
     b, s, _ = frames.shape
@@ -42,23 +42,24 @@ def _encode(model, frames, mask, cfg: ArchConfig, mode: str):
                     model.frame_proj, train)
     if mask is not None:
         x = torch.where(mask[..., None], model.mask_embed, x)
+    x = base.constrain(x, mesh, "batch", None, None)
     positions = torch.arange(s, device=frames.device).expand(b, s)
 
     def one(i, x):
-        return tfm.layer_apply(model.layers[i], x, cfg, mode,
+        return tfm.layer_apply(model.layers[i], x, cfg, mode, mesh=mesh,
                                positions=positions, mask_override="none")
     x, _ = tfm.run_units(one, [1] * cfg.n_layers, x, train and cfg.remat)
     return base.rms_norm(x, model.final_norm, cfg.norm_eps)
 
 
-def encoder_train_loss(model, batch, cfg: ArchConfig):
+def encoder_train_loss(model, batch, cfg: ArchConfig, mesh=None):
     """batch: frames (B, T, 512) bf16, mask (B, T) bool, labels (B, T)
     ints; cross-entropy on the masked frames only."""
     frames, mask, labels = batch["frames"], batch["mask"], batch["labels"]
-    x = _encode(model, frames, mask, cfg, "train")
+    x = _encode(model, frames, mask, cfg, "train", mesh)
     return base.cross_entropy_chunked(
         lambda xs: base.matmul(xs, model.lm_head, train=True), x, labels,
-        mask.to(torch.float32), chunk=cfg.ce_chunk)
+        mask.to(torch.float32), chunk=cfg.ce_chunk, mesh=mesh)
 
 
 def encoder_forward(model, frames, cfg: ArchConfig):

@@ -64,7 +64,7 @@ def hybrid_cache_spec(cfg: ArchConfig, batch: int, s_cap: int) -> list:
 
 
 def stack_apply(model, x, cfg: ArchConfig, mode: str, caches=None,
-                positions=None, pos=None):
+                positions=None, pos=None, mesh=None):
     """Each group's shared block, then its Mamba layers; then the tail.
     Fills ``caches`` in place."""
     every, n_groups, n_tail = pattern(cfg)
@@ -76,29 +76,29 @@ def stack_apply(model, x, cfg: ArchConfig, mode: str, caches=None,
         if cfg.shared_attn_every and i < n_groups * every \
                 and i % every == 0:
             x, _ = tfm.layer_apply(model.shared_attn, x, cfg, mode,
-                                   cache=next(apps),
+                                   cache=next(apps), mesh=mesh,
                                    positions=positions, pos=pos)
         return ssm_apply(model.layers[i], x, cfg, mode,
-                         cache=next(apps)), 0.0
+                         cache=next(apps), mesh=mesh), 0.0
 
     return tfm.run_units(one, [every] * n_groups + [1] * n_tail, x,
                          mode == "train" and cfg.remat)[0]
 
 
-def lm_train_loss(model, batch, cfg: ArchConfig):
+def lm_train_loss(model, batch, cfg: ArchConfig, mesh=None):
     """Mean next-token cross-entropy of ``batch`` (``tokens``,
     ``labels``, optional ``mask``)."""
     tokens, labels = batch["tokens"], batch["labels"]
     mask = tfm.loss_mask(batch)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = tfm.embed_tokens(model, tokens, cfg, False)
-    x = stack_apply(model, x, cfg, "train", positions=positions)
+    x = tfm.embed_tokens(model, tokens, cfg, False, mesh)
+    x = stack_apply(model, x, cfg, "train", positions=positions, mesh=mesh)
     x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
     w = tfm.unembed_matrix(model, cfg)
     return base.cross_entropy_chunked(
         lambda xs: base.matmul(xs, w, train=True), x, labels, mask,
-        chunk=cfg.ce_chunk, final_cap=cfg.final_logit_cap)
+        chunk=cfg.ce_chunk, final_cap=cfg.final_logit_cap, mesh=mesh)
 
 
 def lm_prefill(model, tokens, cfg: ArchConfig, s_cap=None):

@@ -14,15 +14,21 @@ adds; decode takes one float32 contraction over the window.
 
 Decode is the O(1) recurrent step on a carried (state, conv window)
 cache, written in place.
+
+Training runs on a mesh too (DTensors): the projection is replicated
+over the model axis, each rank runs the SSD for its heads (the
+reference's constraint of ``xh`` to heads on "model"), and the gated
+output's matmul is reduced over the model axis.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from . import base
 from .base import Param
-from .transformer import TensorSpec
+from .transformer import TensorSpec, constrain_act
 from ..configs.base import ArchConfig
 
 
@@ -82,32 +88,78 @@ def _causal_conv(xbc, w, b):
     return F.silu(out).to(xbc.dtype)
 
 
-def _gated_out(p, y, z, u, cfg: ArchConfig, train: bool = False):
+def _gated_out(p, y, z, u, cfg: ArchConfig, train: bool = False,
+              mesh=None):
     y = base.rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype),
                       p.gate_norm, cfg.norm_eps)
-    return u + base.matmul(y, p.out_proj, train)
+    return constrain_act(u + base.matmul(y, p.out_proj, train), mesh)
 
 
-def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
+def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None, mesh=None):
     """Returns ``u + mamba2(u)``; with a ``cache`` (prefill or decode) it
     is written in place: the last ``kw - 1`` pre-conv rows and the final
     state.  u: (B, S, D); a prefill needs S >= kw - 1.  Mode "train" is
     the prefill's forward with no cache and one matmul call a
-    projection."""
+    projection; a ``mesh`` (DTensor ``u``) is the training path's."""
     if mode == "decode":
         return _ssm_decode(p, u, cfg, cache)
+    if mesh is not None:
+        if mode != "train":
+            raise ValueError("the mesh path trains; serving on a mesh is "
+                             "not ported")
+        return _ssm_mesh(p, u, cfg, mesh)
+    train = mode == "train"
+    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
+    zxbcdt = base.matmul(xn, p.in_proj, train)
+    y, xbc_pre, state = _ssd(zxbcdt, p.conv_w, p.conv_b, p.dt_bias,
+                             p.A_log, p.D, cfg)
+    out = _gated_out(p, y.to(u.dtype), zxbcdt[..., :cfg.d_inner], u, cfg,
+                     train)
+    if cache is not None:
+        kw = cfg.ssm_conv_width
+        s_orig = u.shape[1]
+        if s_orig < kw - 1:
+            raise ValueError(f"a prefill needs at least {kw - 1} tokens "
+                             f"(the conv window), got {s_orig}")
+        cache["conv"].copy_(xbc_pre[:, s_orig - (kw - 1):s_orig])
+        cache["state"].copy_(state)
+    return out
 
-    b, s_orig, _ = u.shape
+
+def _ssm_mesh(p, u, cfg: ArchConfig, mesh):
+    """:func:`ssm_apply`'s training forward on DTensors."""
+    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
+    zxbcdt = constrain_act(base.matmul(xn, p.in_proj, True), mesh)
+    whole = tuple(Replicate() for _ in base.mesh_names(mesh))
+    prm = [t.redistribute(mesh, whole) for t in (
+        base.gathered(p.conv_w), base.gathered(p.conv_b), p.dt_bias,
+        p.A_log, p.D)]
+    h, m = cfg.n_ssm_heads, base.axis_size(mesh, "model")
+    heads, model_pl = slice(None), Replicate()
+    if m > 1 and h % m == 0:     # the reference's xh on ("model") heads
+        r = mesh.get_local_rank("model")
+        heads, model_pl = slice(r * h // m, (r + 1) * h // m), Shard(2)
+    y = base.local_map(
+        lambda zl, *ps: _ssd(zl, *ps, cfg, heads)[0].to(zl.dtype), mesh,
+        (zxbcdt, *prm),
+        base.batch_placed(zxbcdt, mesh, model_pl).placements)
+    y = constrain_act(y, mesh)
+    return _gated_out(p, y, zxbcdt[..., :cfg.d_inner], u, cfg, True, mesh)
+
+
+def _ssd(zxbcdt, conv_w, conv_b, dt_bias, A_log, D, cfg: ArchConfig,
+         heads: slice = slice(None)):
+    """The SSD of the in-projection's output (B, S, 2 di + 2 N + H) over
+    ``heads`` (all by default) -> (float32 y (B, S, heads x P), the
+    pre-conv rows, the final state)."""
+    b, s_orig, _ = zxbcdt.shape
     di, n, h, pdim = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
                       cfg.ssm_head_dim)
     q = cfg.ssm_chunk
     f32 = torch.float32
-    train = mode == "train"
-
-    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
-    z, xbc_pre, dt_raw = _split_proj(base.matmul(xn, p.in_proj, train), cfg)
-    xbc = _causal_conv(xbc_pre, p.conv_w, p.conv_b)
-    dt = _softplus(dt_raw.to(f32) + p.dt_bias)
+    _, xbc_pre, dt_raw = _split_proj(zxbcdt, cfg)
+    xbc = _causal_conv(xbc_pre, conv_w, conv_b)
+    dt = _softplus(dt_raw.to(f32) + dt_bias)
 
     # pad to a chunk multiple; padded steps get dt=0 => identity decay
     # and zero state contribution (exact for any length)
@@ -117,17 +169,19 @@ def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
         dt = F.pad(dt, (0, 0, 0, s - s_orig))
     nc = s // q
 
-    xc = xbc[..., :di].reshape(b, nc, q, h, pdim)
+    xc = xbc[..., :di].reshape(b, nc, q, h, pdim)[..., heads, :]
     bc = xbc[..., di:di + n].reshape(b, nc, q, n).to(f32)      # G = 1
     cc = xbc[..., di + n:].reshape(b, nc, q, n).to(f32)
-    dtc = dt.reshape(b, nc, q, h)
-    a = -torch.exp(p.A_log)                                     # (H,) < 0
+    dtc = dt.reshape(b, nc, q, h)[..., heads]
+    a = -torch.exp(A_log[heads])                                # (H,) < 0
+    h = dtc.shape[-1]
     cum = torch.cumsum(dtc * a, dim=2)                          # (B,nc,q,H)
 
     # ---- intra-chunk (quadratic) ----
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)                # (B,nc,q,q)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,nc,i,j,H)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=u.device))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                device=zxbcdt.device))
     # above the diagonal seg >= 0 and its exp may overflow: masked before
     # the exp (-inf -> 0, the same values as masking after it), its
     # gradient is 0, not 0 * inf = nan as in the reference once a chunk's
@@ -143,7 +197,7 @@ def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
     states = torch.einsum("bcln,bclhp->bchnp", bc,
                           (decay_out * dtc)[..., None] * xc.to(f32))
     chunk_decay = torch.exp(cum[:, :, -1, :])                   # (B,nc,H)
-    state = torch.zeros((b, h, n, pdim), dtype=f32, device=u.device)
+    state = torch.zeros((b, h, n, pdim), dtype=f32, device=zxbcdt.device)
     prev = []                  # the state before each chunk
     for c in range(nc):
         prev.append(state)
@@ -152,18 +206,9 @@ def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None):
 
     y_off = torch.einsum("bcin,bchnp->bcihp", cc, states_prev) \
         * torch.exp(cum)[..., None]
-    y = (y_diag + y_off) + p.D[None, None, None, :, None] * xc.to(f32)
-    y = y.reshape(b, s, di)[:, :s_orig].to(u.dtype)
-    out = _gated_out(p, y, z, u, cfg, train)
-
-    if cache is not None:
-        kw = cfg.ssm_conv_width
-        if s_orig < kw - 1:
-            raise ValueError(f"a prefill needs at least {kw - 1} tokens "
-                             f"(the conv window), got {s_orig}")
-        cache["conv"].copy_(xbc_pre[:, s_orig - (kw - 1):s_orig])
-        cache["state"].copy_(state)
-    return out
+    y = (y_diag + y_off) + D[heads][None, None, None, :, None] \
+        * xc.to(f32)
+    return y.reshape(b, s, h * pdim)[:, :s_orig], xbc_pre, state
 
 
 def _ssm_decode(p, u, cfg: ArchConfig, cache):

@@ -17,6 +17,13 @@ Modes:
   decode   -- one token per call against the caches (ring buffers for
               sliding-window layers), written in place
 
+Training also runs on a ``mesh`` (DTensor activations, batch-sharded
+over the data axes): the reference's ``constrain_act``,
+``constrain_heads`` and ``constrain_kv`` become ``redistribute`` calls
+at its points, with its ``attn_fallback`` rules, and the attention runs
+on each rank's heads (:func:`attention_layout`), or its sequence slice
+(``flash_attention_context_parallel``, the reference's selection rule).
+
 Decode writes a row's key and value only where its slot lies inside the
 cache: a global layer's slot is ``pos`` itself, and a caller that keeps
 stepping a finished sequence moves ``pos`` past the cache.  The JAX
@@ -28,16 +35,107 @@ import collections
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from . import base
 from .attention import flash_attention, decode_attention, \
-    decode_attention_int8, _quant_rows
-from .base import Param
+    decode_attention_int8, _quant_rows, flash_attention_context_parallel
+from .base import Param, constrain
 from ..configs.base import ArchConfig
 
 #: shape and dtype of one cache tensor (the reference's ShapeDtypeStruct)
 TensorSpec = collections.namedtuple("TensorSpec", "shape dtype")
+
+
+# ------------------------------------------------------------------ mesh
+
+def constrain_act(x, mesh):
+    return constrain(x, mesh, "batch", *([None] * (x.ndim - 1)))
+
+
+def constrain_heads(x, mesh, fallback: str = "hd"):
+    """(B, S, H, hd): shard heads on model if divisible; else fall back
+    to head_dim ("hd") or replication ("replicate")."""
+    if mesh is None:
+        return x
+    m = base.axis_size(mesh, "model")
+    if x.shape[-2] % m == 0:
+        return constrain(x, mesh, "batch", None, "model", None)
+    if fallback == "hd" and x.shape[-1] % m == 0:
+        return constrain(x, mesh, "batch", None, None, "model")
+    return constrain_act(x, mesh)
+
+
+def constrain_kv(x, mesh, fallback: str = "hd"):
+    """(B, S, KV, hd): kv heads on model when divisible; when they are
+    not, "hd" leaves the layout as it comes and "replicate"/"seq"
+    replicate over the model axis."""
+    if mesh is None:
+        return x
+    m = base.axis_size(mesh, "model")
+    if x.shape[-2] % m == 0:
+        return constrain(x, mesh, "batch", None, "model", None)
+    if fallback in ("replicate", "seq"):
+        return constrain_act(x, mesh)
+    return x
+
+
+def use_context_parallel(cfg: ArchConfig, mesh, s: int) -> bool:
+    """The reference's rule: the "seq" fallback, on a model axis the
+    sequence divides and the heads do not."""
+    m = base.axis_size(mesh, "model")
+    return (cfg.attn_fallback == "seq" and mesh is not None
+            and "model" in base.mesh_names(mesh)
+            and s % max(m, 1) == 0 and cfg.n_heads % m != 0)
+
+
+def attention_layout(cfg: ArchConfig, mesh):
+    """(q's, k's and v's model-axis placement, kv heads a rank takes)
+    for the attention on ``mesh``: q on its heads when they divide and
+    each rank's heads share whole kv heads (k and v then on their heads,
+    or replicated with each rank taking its ``kv_take`` heads); else
+    everything replicated over the model axis."""
+    m = base.axis_size(mesh, "model")
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if m == 1 or h % m:
+        return Replicate(), Replicate(), None
+    if kv % m == 0:
+        return Shard(2), Shard(2), None
+    if (h // kv) % (h // m) == 0:
+        return Shard(2), Replicate(), 1
+    return Replicate(), Replicate(), None
+
+
+def _rope_local(mesh, theta, t):
+    """``rope`` of a (B, S, n, hd) DTensor, each rank its own rows (the
+    positions 0..S-1 of every sequence)."""
+    def fn(local):
+        b, s = local.shape[:2]
+        pos = torch.arange(s, device=local.device).expand(b, s)
+        return base.rope(local, pos.to(torch.float32), theta)
+    return base.local_map(fn, mesh, (t,), t.placements)
+
+
+def _attention_mesh(q, k, v, cfg: ArchConfig, mesh, mask_kind, prefix_len):
+    """The attention of DTensor q, k, v at :func:`attention_layout`:
+    each rank its batch rows and its heads (or all heads)."""
+    q_pl, kv_pl, kv_take = attention_layout(cfg, mesh)
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    first = None
+    if kv_take:   # this rank's q heads all read one kv head
+        first = mesh.get_local_rank("model") * (h // base.axis_size(
+            mesh, "model")) // (h // kv)
+
+    def fn(ql, kl, vl):
+        if first is not None:
+            kl, vl = kl[:, :, first:first + 1], vl[:, :, first:first + 1]
+        return flash_attention(
+            ql, kl, vl, mask_kind=mask_kind, window=cfg.window,
+            prefix_len=prefix_len, logit_cap=cfg.attn_logit_cap,
+            q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+            schedule=cfg.attn_schedule)
+    return base.local_map(fn, mesh, (q, k, v), q.placements)
 
 
 def group_pattern(cfg: ArchConfig):
@@ -208,18 +306,77 @@ def _prefill_write(cache, kind, k, v, int8: bool):
             cache[name][:, :s] = val
 
 
+def _mask_kind(kind, prefix_len, mask_override):
+    if mask_override is not None:
+        return mask_override
+    return ("local" if kind == "local"
+            else ("prefix" if prefix_len is not None else "causal"))
+
+
+def _attn_mesh(p, x, xn, cfg: ArchConfig, kind: str, mesh, prefix_len,
+               mask_override):
+    """The training attention on DTensors, the reference's constrain
+    points in its order; returns ``x + attention(x)``."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    fb = cfg.attn_fallback
+    m = base.axis_size(mesh, "model")
+
+    def heads(t, n):
+        if n % m:       # a model-axis shard would cut a head
+            t = constrain_act(t, mesh)
+        return t.reshape(b, s, n, hd)
+    q = constrain_heads(heads(base.matmul(xn, p.wq), h), mesh, fb)
+    k = constrain_kv(heads(base.matmul(xn, p.wk), kv), mesh, fb)
+    v = constrain_kv(heads(base.matmul(xn, p.wv), kv), mesh, fb)
+    if cfg.qk_norm:
+        q = base.rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = base.rms_norm(k, p.k_norm, cfg.norm_eps)
+    q_pl, kv_pl, _ = attention_layout(cfg, mesh)
+    theta = layer_theta(cfg, kind)
+    q = _rope_local(mesh, theta, base.batch_placed(q, mesh, q_pl))
+    k = _rope_local(mesh, theta, base.batch_placed(k, mesh, kv_pl))
+    q = constrain_heads(q, mesh, fb)            # the reference's re-pin
+    k = constrain_kv(k, mesh, fb)
+    mask_kind = _mask_kind(kind, prefix_len, mask_override)
+    if use_context_parallel(cfg, mesh, s):
+        o = flash_attention_context_parallel(
+            q, k, v, mesh, mask_kind=mask_kind, window=cfg.window,
+            prefix_len=prefix_len, logit_cap=cfg.attn_logit_cap,
+            q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+    else:
+        o = _attention_mesh(base.batch_placed(q, mesh, q_pl),
+                            base.batch_placed(k, mesh, kv_pl),
+                            base.batch_placed(v, mesh, kv_pl), cfg, mesh,
+                            mask_kind, prefix_len)
+    o = o.reshape(b, s, h * hd)
+    if h % m != 0:
+        # the reference's constraint for "replicate" and "seq"; with "hd"
+        # too, or wo's model-sharded gradient would reach the reshape's
+        # backward, which cannot split heads the axis does not divide
+        o = constrain_act(o, mesh)
+    return constrain_act(x + base.matmul(o, p.wo), mesh)
+
+
 def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
                positions=None, pos=None, cache=None, prefix_len=None,
-               mask_override=None):
+               mask_override=None, mesh=None):
     """Returns ``x + attention(x)``; fills ``cache`` in place (keys are
     roped before caching).  A global layer takes the prefix-LM mask when
-    ``prefix_len`` is set; ``mask_override`` replaces the mask kind."""
+    ``prefix_len`` is set; ``mask_override`` replaces the mask kind.
+    A ``mesh`` (DTensor ``x``) is the training path's."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = layer_theta(cfg, kind)
     int8 = cfg.kv_cache_dtype == "int8"
     train = mode == "train"
     xn = base.rms_norm(x, p.norm, cfg.norm_eps)
+    if mesh is not None:
+        if not train:
+            raise ValueError("the mesh path trains; serving on a mesh is "
+                             "not ported")
+        return _attn_mesh(p, x, xn, cfg, kind, mesh, prefix_len,
+                          mask_override)
     q = base.matmul(xn, p.wq, train).reshape(b, s, h, hd)
     k = base.matmul(xn, p.wk, train).reshape(b, s, kv, hd)
     v = base.matmul(xn, p.wv, train).reshape(b, s, kv, hd)
@@ -243,10 +400,7 @@ def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
     else:
         q = base.rope(q, positions.to(torch.float32), theta)
         k = base.rope(k, positions.to(torch.float32), theta)
-        mask_kind = ("local" if kind == "local"
-                     else ("prefix" if prefix_len is not None else "causal"))
-        if mask_override is not None:
-            mask_kind = mask_override
+        mask_kind = _mask_kind(kind, prefix_len, mask_override)
         o = flash_attention(
             q, k, v, mask_kind=mask_kind, window=cfg.window,
             prefix_len=prefix_len, logit_cap=cfg.attn_logit_cap,
@@ -257,19 +411,20 @@ def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
     return x + base.matmul(o.reshape(b, s, h * hd), p.wo, train)
 
 
-def mlp_apply(p, x, cfg: ArchConfig, train: bool = False):
+def mlp_apply(p, x, cfg: ArchConfig, train: bool = False, mesh=None):
     xn = base.rms_norm(x, p.norm, cfg.norm_eps)
-    return x + base.swiglu(xn, p.w_gate, p.w_up, p.w_down, train)
+    return constrain_act(x + base.swiglu(xn, p.w_gate, p.w_up, p.w_down,
+                                         train), mesh)
 
 
-def layer_apply(layer, x, cfg: ArchConfig, mode: str, **kw):
+def layer_apply(layer, x, cfg: ArchConfig, mode: str, mesh=None, **kw):
     """Returns (x, aux): aux is an MoE layer's router z-loss, else 0."""
     from . import moe
-    x = attn_apply(layer.attn, x, cfg, layer.kind, mode, **kw)
+    x = attn_apply(layer.attn, x, cfg, layer.kind, mode, mesh=mesh, **kw)
     if cfg.family == "moe":
         return moe.moe_apply(layer.moe, x, cfg, decode=(mode == "decode"),
-                             train=(mode == "train"))
-    return mlp_apply(layer.mlp, x, cfg, mode == "train"), 0.0
+                             train=(mode == "train"), mesh=mesh)
+    return mlp_apply(layer.mlp, x, cfg, mode == "train", mesh), 0.0
 
 
 def remat_units(cfg: ArchConfig) -> list:
@@ -313,12 +468,33 @@ def stack_apply(layers, x, cfg: ArchConfig, mode: str, caches=None, **kw):
 
 # ------------------------------------------------------------------ LM API
 
-def embed_tokens(model, tokens, cfg: ArchConfig, scale: bool):
-    x = model.embed[tokens]
-    if scale:    # sqrt(d_model) in float32, rounded to the working dtype
-        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=torch.float32,
-                           device=x.device).to(x.dtype)
-    return x
+def embed_tokens(model, tokens, cfg: ArchConfig, scale: bool, mesh=None):
+    """The rows of ``tokens``; on a ``mesh`` each rank looks up the
+    tokens in its shard of the vocabulary (zeros elsewhere) and the
+    model axis sums them: one non-zero term, the row's bits."""
+    def lookup(w, toks, v0=None):
+        if v0 is None:
+            x = w[toks]
+        else:
+            idx = toks.long() - v0
+            mine = (idx >= 0) & (idx < w.shape[0])
+            x = torch.where(mine[..., None],
+                            w[idx.clamp(0, w.shape[0] - 1)], 0.0)
+        if scale:    # sqrt(d_model) in float32, rounded to the working dtype
+            x = x * torch.full((), math.sqrt(cfg.d_model),
+                               dtype=torch.float32,
+                               device=x.device).to(x.dtype)
+        return x
+    if mesh is None:
+        return lookup(model.embed, tokens)
+    w = base.gathered(model.embed)
+    pls, v0 = tokens.placements, None
+    if base.model_sharded(w, mesh):
+        v0 = mesh.get_local_rank("model") * w.to_local().shape[0]
+        pls = base.on_model(pls, mesh, base.Partial())
+    x = base.local_map(lambda wl, tl: lookup(wl, tl, v0), mesh,
+                       (w, tokens), pls)
+    return constrain_act(x, mesh)
 
 
 def unembed_matrix(model, cfg: ArchConfig):
@@ -331,13 +507,12 @@ def loss_mask(batch) -> torch.Tensor:
     """``batch["mask"]``, or float32 ones shaped as the labels."""
     mask = batch.get("mask")
     if mask is None:
-        labels = batch["labels"]
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
+        mask = torch.ones_like(batch["labels"], dtype=torch.float32)
     return mask
 
 
-def lm_train_loss(model, batch, cfg: ArchConfig, embed_scale: bool = False):
+def lm_train_loss(model, batch, cfg: ArchConfig, embed_scale: bool = False,
+                  mesh=None):
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
     (B, S), optional float ``mask``); an MoE adds
     ``router_aux_coef * aux / n_layers``."""
@@ -345,13 +520,14 @@ def lm_train_loss(model, batch, cfg: ArchConfig, embed_scale: bool = False):
     mask = loss_mask(batch)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed_tokens(model, tokens, cfg, embed_scale)
-    x, aux = stack_apply(model.layers, x, cfg, "train", positions=positions)
+    x = embed_tokens(model, tokens, cfg, embed_scale, mesh)
+    x, aux = stack_apply(model.layers, x, cfg, "train", positions=positions,
+                         mesh=mesh)
     x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
     w = unembed_matrix(model, cfg)
     ce = base.cross_entropy_chunked(
         lambda xs: base.matmul(xs, w, train=True), x, labels, mask,
-        chunk=cfg.ce_chunk, final_cap=cfg.final_logit_cap)
+        chunk=cfg.ce_chunk, final_cap=cfg.final_logit_cap, mesh=mesh)
     if cfg.family == "moe":
         ce = ce + cfg.router_aux_coef * aux / cfg.n_layers
     return ce

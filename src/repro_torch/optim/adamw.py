@@ -10,6 +10,14 @@ division is by a tensor on the operands' device (CUDA divides by a
 Python scalar as a multiply by its reciprocal).  AdamW is
 elementwise, so updating a model's unstacked layers changes only the
 order in which :func:`global_norm` sums the leaves.
+
+On a mesh (DTensor parameters) the moments take their parameter's
+placements, each gradient is redistributed to its parameter's
+placements first (:func:`placed_like`: a ``Partial`` gradient's data
+axis reduction happens there), the update runs on each rank's shards,
+and :func:`sq_norms` gives every rank the same bits: each leaf's local
+sum of squares from the ranks that hold a distinct shard of it, all
+summed in one all-reduce over the mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 #: substrings of a leaf's name that exempt it from weight decay: norms,
 #: biases, the SSM's scalar parameters, the encoder's mask embedding
@@ -66,18 +76,55 @@ def decays(name: str) -> bool:
     return not any(t in name for t in NO_DECAY)
 
 
+def sq_norms(tree: dict) -> list:
+    """Each leaf's float32 sum of squares (0-d tensors, in the tree's
+    order).  DTensor leaves: the same bits on every rank of their mesh
+    (one all-reduce of the ranks' local sums, a leaf's replicas but one
+    contributing zero)."""
+    leaves = list(tree.values())
+    if not leaves or not isinstance(leaves[0], DTensor):
+        return [torch.sum(torch.square(x.to(torch.float32)))
+                for x in leaves]
+    from ..models.base import mesh_group
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    parts = []
+    for x in leaves:
+        local = torch.sum(torch.square(x.to_local().to(torch.float32)))
+        owner = all(pl.is_shard() or c == 0
+                    for pl, c in zip(x.placements, coord))
+        parts.append(local if owner else torch.zeros_like(local))
+    total = torch.stack(parts)
+    if mesh.size() > 1:
+        dist.all_reduce(total, group=mesh_group(mesh, mesh.mesh_dim_names))
+    return list(total.unbind())
+
+
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree.values()))
+    return torch.sqrt(sum(sq_norms(tree)))
+
+
+def placed_like(params: dict, grads: dict) -> dict:
+    """Each DTensor gradient at its parameter's placements (a
+    ``Partial`` one reduced: the data-parallel reduction)."""
+    out = {}
+    for name, g in grads.items():
+        p = params[name]
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        out[name] = g
+    return out
 
 
 def init_state(params: dict) -> dict:
     """``step`` (a 0-d int32 CPU tensor) and float32 moments ``m``, ``v``
-    keyed as ``params``, on each parameter's device."""
+    keyed as ``params``, on each parameter's device (a DTensor
+    parameter's moments at its placements)."""
     def zeros():
-        return {name: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+        return {name: torch.zeros_like(p, dtype=torch.float32)
+                if isinstance(p, DTensor) else
+                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for name, p in params.items()}
     return {"step": torch.zeros((), dtype=torch.int32), "m": zeros(),
             "v": zeros()}
@@ -107,6 +154,7 @@ def apply_updates(params: dict, grads: dict, state: dict,
     reference returns new trees).  Returns ``{"grad_norm", "lr"}``."""
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
+    grads = placed_like(params, grads)
     gnorm = global_norm(grads)
     scale = None
     if cfg.clip_norm is not None:
@@ -119,10 +167,12 @@ def apply_updates(params: dict, grads: dict, state: dict,
     consts = StepConstants(torch.stack([lr, bc1, bc2]))
     for name, p in params.items():
         lr_d, bc1_d, bc2_d = consts.on(p.device)
-        g = grads[name].to(torch.float32)
+        g, m, v = grads[name], state["m"][name], state["v"][name]
+        if isinstance(p, DTensor):       # each rank its shards
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
+        g = g.to(torch.float32)
         if scale is not None:
             g = g * scale.to(g.device)
-        m, v = state["m"][name], state["v"][name]
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)
         update = (m / bc1_d) / (torch.sqrt(v / bc2_d) + cfg.eps)

@@ -1,5 +1,5 @@
 """Fault-tolerant training loop, as the JAX package's
-``runtime/trainer.py``, on one device.
+``runtime/trainer.py``, on one device or on a ``DeviceMesh``.
 
   * the train step: autograd over ``Model.train_loss``, microbatch
     gradient accumulation (optionally *exact* through
@@ -18,9 +18,17 @@
 The train step syncs with the device once (the loss and the squared
 gradient norm read together); the loop's batch, drawn on the host or
 copied back from the device and then sent to it, adds its own copies.
-The mesh path (``make_train_step(mesh=...)``, the
-parameter specs) is ROADMAP queue 1 item 2: training across processes
-raises ``NotImplementedError`` until then.
+
+With ``mesh=`` (a ``DeviceMesh`` from ``launch.mesh``) the model is
+distributed on it (``Model.distribute_``: the reference's parameter
+specs), the AdamW moments take the parameters' placements, each batch
+comes as DTensors split over the data axes (``device_batch``; a source
+made per data shard hands over its own rows), and the gradients are
+reduced to the parameters' placements before the update.  The loss and
+the squared gradient norm are the same bits on every rank, so every
+rank's non-finite guard decides alike.  A checkpoint gathers each leaf
+on every rank (``full_tensor``) and rank 0 writes it; a restore
+distributes the full leaves again.
 """
 from __future__ import annotations
 
@@ -33,13 +41,16 @@ import time
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..checkpoint import CheckpointManager
 from ..data.pipeline import device_batch
 from ..exact import exact_tree_sum
 from ..models import api
 from ..models.api import Model
+from ..models.base import constrain, local_chunk
 from ..optim import AdamWConfig, apply_updates, init_state, schedule_lr
+from ..optim.adamw import placed_like, sq_norms
 
 
 @dataclasses.dataclass
@@ -55,53 +66,105 @@ class TrainerConfig:
     straggler_factor: float = 3.0
 
 
-def maybe_init_distributed() -> None:
+def maybe_init_distributed(device=None) -> None:
     """Multi-process bootstrap from torch's own environment variables
-    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, as
-    ``torchrun`` sets them); a no-op in a single process."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
-            and not dist.is_initialized():
-        dist.init_process_group(
-            "nccl" if torch.cuda.is_available() else "gloo")
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``, as ``torchrun`` sets them); a no-op in a single
+    process and where a process group exists.
+
+    Each rank takes the card ``LOCAL_RANK`` as its current device and
+    joins an NCCL world (one card a rank: NCCL refuses two ranks on one
+    card), so that ``resolve_device(None)`` and ``device_batch`` place
+    its model and batches there.  A rank with no card of its own raises.
+    With a CPU ``device`` the world is gloo's."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return
+    if device is not None and torch.device(device).type == "cpu":
+        dist.init_process_group("gloo")
+        return
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    cards = torch.cuda.device_count()
+    if local >= cards:
+        raise RuntimeError(
+            f"local rank {local} has no card of its own ({cards} on this "
+            f"host): an NCCL world takes one card a rank (pass a CPU "
+            f"device for a gloo world)")
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl", device_id=torch.device("cuda", local))
 
 
 def _div(t: torch.Tensor, n: int) -> torch.Tensor:
     """``t / n`` by a tensor on ``t``'s device (CUDA divides by a Python
-    scalar as a multiply by its reciprocal)."""
+    scalar as a multiply by its reciprocal); a DTensor's shards."""
+    if isinstance(t, DTensor):
+        return DTensor.from_local(_div(t.to_local(), n), t.device_mesh,
+                                  t.placements, run_check=False)
     return t / torch.full((), n, dtype=t.dtype, device=t.device)
 
 
-def make_train_step(model: Model, opt_cfg: AdamWConfig,
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered on every rank (a collective); else ``t``."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _accumulate(gs: list, exact: bool, mesh=None) -> list:
+    """The mean of microbatch gradient lists ``gs``; ``exact`` through
+    ``exact_tree_sum`` (bit-identical for any order).  On a mesh the
+    gradients are DTensors at their parameters' placements and the exact
+    sum runs on each rank's shards: it is elementwise, so the bits are
+    the whole tensors' sum's."""
+    n = len(gs)
+    if exact and mesh is not None:
+        local = exact_tree_sum([[g.to_local() for g in row] for row in gs])
+        return [_div(DTensor.from_local(t, g.device_mesh, g.placements,
+                                        run_check=False), n)
+                for g, t in zip(gs[0], local)]
+    if exact:
+        return [_div(g, n) for g in exact_tree_sum(gs)]
+    return [_div(sum(col), n) for col in zip(*gs)]
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None,
                     microbatches: int = 1, exact_accum: bool = False):
     """``step(opt_state, batch) -> stats``: one optimizer step on
     ``model``'s parameters (gradients turned on here) and ``opt_state``
     (AdamW's, keyed by parameter name), both in place.  ``stats``:
-    ``loss``, ``finite``, ``grad_norm``, ``lr`` (host numbers)."""
+    ``loss``, ``finite``, ``grad_norm``, ``lr`` (host numbers).
+
+    With a ``mesh`` the model is distributed on it here unless it
+    already is (``opt_state`` must be made after, from its parameters);
+    the batch is a ``device_batch(..., mesh=mesh)``."""
+    if mesh is not None and model.mesh is None:
+        model.distribute_(mesh)
     model.requires_grad_(True)
     named = dict(model.named_parameters())
     names, params = list(named), list(named.values())
 
     def value_and_grad(batch):
-        loss = model.train_loss(batch)
-        return loss.detach(), torch.autograd.grad(loss, params)
+        loss = model.train_loss(batch, mesh)
+        grads = torch.autograd.grad(loss, params)
+        if mesh is not None:          # the data-parallel reduction
+            grads = list(placed_like(named, dict(zip(names,
+                                                     grads))).values())
+        return loss.detach(), grads
 
     def step_fn(opt_state: dict, batch: dict) -> dict:
         if microbatches == 1:
             loss, grads = value_and_grad(batch)
         else:
             rows = next(iter(batch.values())).shape[0] // microbatches
-            pairs = [value_and_grad({k: v[i * rows:(i + 1) * rows]
+
+            def micro(v, i):   # the global batch's rows, as the reference
+                v = v[i * rows:(i + 1) * rows]
+                return v if mesh is None else constrain(
+                    v, mesh, "batch", *([None] * (v.ndim - 1)))
+            pairs = [value_and_grad({k: micro(v, i)
                                      for k, v in batch.items()})
                      for i in range(microbatches)]
-            gs = [g for _, g in pairs]
-            if exact_accum:
-                grads = [_div(g, microbatches) for g in exact_tree_sum(gs)]
-            else:
-                grads = [_div(sum(col), microbatches) for col in zip(*gs)]
+            grads = _accumulate([g for _, g in pairs], exact_accum, mesh)
             loss = _div(sum(l for l, _ in pairs), microbatches)
 
-        gnorm_sq = sum(torch.sum(torch.square(g.to(torch.float32)))
-                       for g in grads)
+        gnorm_sq = sum(sq_norms(dict(zip(names, grads))))
         loss_v, gsq = torch.stack([loss.to(torch.float32),
                                    gnorm_sq]).tolist()    # the one sync
         finite = math.isfinite(loss_v) and math.isfinite(gsq)
@@ -132,10 +195,13 @@ def state_tree(model: Model, opt_state: dict) -> dict:
     leaves are fresh copies but ``step``, which the optimizer replaces
     and never changes in place."""
     cfg = model.cfg
-    return {"params": api.stack_tree(cfg, dict(model.named_parameters())),
+
+    def stacked(tree):        # a mesh's leaves gathered one at a time
+        return api.stack_tree(cfg, {n: _full(t) for n, t in tree.items()})
+    return {"params": stacked(dict(model.named_parameters())),
             "opt": {"step": opt_state["step"],
-                    "m": api.stack_tree(cfg, opt_state["m"]),
-                    "v": api.stack_tree(cfg, opt_state["v"])}}
+                    "m": stacked(opt_state["m"]),
+                    "v": stacked(opt_state["v"])}}
 
 
 def _like_tree(cfg) -> dict:
@@ -163,29 +229,47 @@ def load_state(model: Model, opt_state: dict, tree: dict) -> None:
             if t.dtype != dst[name].dtype:
                 raise TypeError(f"checkpoint {name}: {t.dtype}, expected "
                                 f"{dst[name].dtype}")
-            dst[name].copy_(t)
+            d = dst[name]
+            if isinstance(d, DTensor):      # this rank's chunk
+                d.to_local().copy_(local_chunk(t, d.device_mesh,
+                                               d.placements))
+            else:
+                d.copy_(t)
     opt_state["step"] = tree["opt"]["step"].to(torch.int32)
 
 
 def train(model: Model, source, opt_cfg: AdamWConfig,
           tcfg: TrainerConfig, params: dict | None = None,
-          resume: bool = True, seed: int = 0) -> TrainResult:
+          resume: bool = True, seed: int = 0, mesh=None) -> TrainResult:
     """Train ``model`` for ``tcfg.steps`` steps of ``source.batch_at``;
     ``params`` (a state dict) or a seeded init gives the start, unless a
-    checkpoint in ``tcfg.checkpoint_dir`` resumes it."""
-    maybe_init_distributed()
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "training across processes needs the mesh path (ROADMAP "
-            "queue 1 item 2)")
+    checkpoint in ``tcfg.checkpoint_dir`` resumes it.  On a ``mesh`` a
+    source made for one data shard (``host_count`` > 1) hands each rank
+    its own rows; rank 0 alone prints and writes checkpoints."""
+    maybe_init_distributed(model.device)
+    if mesh is None and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise ValueError("a world of several ranks trains on a mesh "
+                         "(train(..., mesh=launch.mesh.make_host_mesh()))")
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
     if params is None:
         model.init(torch.Generator(device=model.device).manual_seed(seed))
     else:
         model.load_state_dict(params)
-    step_fn = make_train_step(model, opt_cfg, tcfg.microbatches,
+    step_fn = make_train_step(model, opt_cfg, mesh, tcfg.microbatches,
                               tcfg.exact_accum)
     opt_state = init_state(dict(model.named_parameters()))
+    local_rows = mesh is not None and getattr(source, "host_count", 1) > 1
+
+    def save(step, now):
+        tree = state_tree(model, opt_state)      # every rank gathers
+        if not lead:
+            return
+        if now:
+            ckpt.save(step, tree)
+        else:
+            ckpt.save_async(step, tree, copy=False)
     start_step = 0
 
     if resume and ckpt.latest_step() is not None:
@@ -207,7 +291,9 @@ def train(model: Model, source, opt_cfg: AdamWConfig,
     try:
         for step in range(start_step, tcfg.steps):
             t0 = time.perf_counter()
-            batch = device_batch(source.batch_at(step), model.device)
+            batch = source.batch_at(step)
+            batch = device_batch(batch, model.device) if mesh is None \
+                else device_batch(batch, mesh=mesh, local=local_rows)
             stats = step_fn(opt_state, batch)
             loss = stats["loss"]
             if not stats["finite"]:
@@ -218,20 +304,20 @@ def train(model: Model, source, opt_cfg: AdamWConfig,
             ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
             if dt > tcfg.straggler_factor * ewma and step > start_step + 2:
                 stragglers.append(step)
-                print(f"[trainer] straggler step {step}: "
-                      f"{dt:.2f}s vs EWMA {ewma:.2f}s")
-            if tcfg.log_every and step % tcfg.log_every == 0:
+                if lead:
+                    print(f"[trainer] straggler step {step}: "
+                          f"{dt:.2f}s vs EWMA {ewma:.2f}s")
+            if lead and tcfg.log_every and step % tcfg.log_every == 0:
                 print(f"[trainer] step {step} loss {loss:.4f} "
                       f"gnorm {stats['grad_norm']:.3f} {dt:.2f}s")
             if tcfg.checkpoint_every and \
                     (step + 1) % tcfg.checkpoint_every == 0:
-                ckpt.save_async(step + 1, state_tree(model, opt_state),
-                                copy=False)
+                save(step + 1, now=False)
             if stop["now"]:
                 print(f"[trainer] SIGTERM at step {step}; checkpointing")
                 break
         ckpt.wait()
-        ckpt.save(step + 1, state_tree(model, opt_state))
+        save(step + 1, now=True)
     finally:
         signal.signal(signal.SIGTERM, old_handler)
     return TrainResult(losses=losses, skipped_steps=skipped,

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no jax, nothing of the reference package.
 
 ``src/repro_torch/**.py``, ``chip_smoke.py``,
-``scripts/row_tiles_bench.py``, ``scripts/decode_drift.py`` and
-``scripts/train_aten_calls.py`` (all run on a machine without jax) may
+``scripts/row_tiles_bench.py``, ``scripts/decode_drift.py``,
+``scripts/train_aten_calls.py`` and ``scripts/gloo_cuda_probe.py`` (all
+run on a machine without jax) may
 import torch, numpy, the standard library, ``repro_torch`` and
 ``chip_smoke`` -- never ``jax`` or ``repro``.
 """
@@ -29,7 +30,8 @@ def test_no_jax_or_reference_imports_in_the_port():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "row_tiles_bench.py",
               ROOT / "scripts" / "decode_drift.py",
-              ROOT / "scripts" / "train_aten_calls.py"]
+              ROOT / "scripts" / "train_aten_calls.py",
+              ROOT / "scripts" / "gloo_cuda_probe.py"]
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for sub in ("core", "core/bank", "designs", "kernels/bank_fold",

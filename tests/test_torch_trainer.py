@@ -186,7 +186,10 @@ def test_launch_train_cli_loss_falls(tmp_path, capsys):
 
 
 def test_launch_train_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    """One process has no model axis to split: ``--model-parallel 2``
+    needs a world of several ranks (the mesh path's runs:
+    ``tests/test_torch_mesh_world.py``)."""
+    with pytest.raises(ValueError, match="world of several ranks"):
         LT.main(["--smoke", "--model-parallel", "2", "--device", "cpu"])
 
 
@@ -200,3 +203,25 @@ def test_maybe_init_distributed_is_a_no_op_alone(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     TR.maybe_init_distributed()
     assert not torch.distributed.is_initialized()
+
+
+def test_maybe_init_distributed_takes_a_card_a_rank(monkeypatch):
+    """Under the launcher's variables each rank binds the card
+    ``LOCAL_RANK`` before NCCL starts; a rank with no card of its own
+    raises, and a CPU device starts gloo."""
+    calls = []
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    monkeypatch.setattr(torch.cuda, "set_device", calls.append)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(RuntimeError, match="no card of its own"):
+        TR.maybe_init_distributed()
+    assert calls == []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    TR.maybe_init_distributed()
+    assert calls == [2, ("nccl", {"device_id": torch.device("cuda", 2)})]
+    calls.clear()
+    TR.maybe_init_distributed("cpu")
+    assert calls == [("gloo", {})]
