@@ -199,6 +199,30 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    the functional all-gather through c10d's (``route_gloo_all_gather``),
    so 11b-e run that routing.  No kernel of phases 2-7 lies on this
    path.
+12. Serving on a mesh and the dry run.  (a) gemma2-9b at full width and
+   depth with phase 8's traffic (4 slots, 32-token prompts, 16 new
+   tokens) through ``ServeEngine(mesh=)`` on a (1, 1) mesh (one NCCL
+   rank in this process): every prefill and decode logit and every
+   token bit-equal to the mesh-less engine.  (b) A spawned 4-rank world
+   (gloo on one card, under ``route_gloo_all_gather``) serving the same
+   traffic on (2, 2), each rank's model drawn whole and distributed by
+   ``Model.distribute_`` (depth cut to ``MESH_SERVE_LAYERS``): the ranks'
+   tokens and logits bit-equal, the prefill's and first step's logits
+   within 0.1 of the std past one bf16 ulp of the mesh-less engine, one
+   sync a step, caches at ``cache_specs``' placements and ``cur``/``pos``
+   at ``batch_spec``'s; step time, collectives a step, peak memory.
+   (c) One slot with a 4,096-token prompt (s_cap 8,192, 8 steps): its
+   caches' sequence split over "data", the decode's log-sum-exp merge
+   held to the same rule.  (d) ``launch.dryrun.run_cell`` on four
+   production cells in fake worlds of 256 and 512 ranks (a process of
+   its own, alongside (a)-(c)): per-rank flops, bytes, collectives,
+   roofline terms, peak bytes against 80 GiB; one cell traced again with
+   ``device_type="cpu"`` gives the same counts; ``--list`` runs.  (e)
+   ``launch.roofline.count_kernel_launches`` (``torch.profiler``) equals
+   the launch counters and ``bank.launch_count`` on fused and
+   per-instance rounds, in (d)'s process: after phase 10's profiled
+   steps torch 2.11's profiler may record no device events in this one.
+   No kernel of phases 2-7 lies on (a)-(d).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -208,6 +232,7 @@ import ctypes
 import dataclasses
 import datetime
 import gc
+import hashlib
 import json
 import os
 import pathlib
@@ -3098,6 +3123,445 @@ def report_mesh(results, smi):
           f"{statistics.median(want_s[1:]) * 1e3:.1f} ms (median of steps "
           f"1-{steps - 1}); world {w['wall_s']:.1f} s [{smi}]")
 
+# -------------------------- phase 12: serving on a mesh, the dry run
+
+#: 12a/12b: phase 8's traffic on gemma2-9b (4 slots, 32-token prompts,
+#: 16 new tokens); 12c: one slot, its caches' sequence split over "data"
+SERVE_MESH = {"slots": 4, "plen": 32, "max_new": 16}
+SEQ_MESH = {"plen": 4096, "s_cap": 8192, "steps": 8}
+#: 12b-c's gemma2-9b depth, reduced: n_layers 42 -> 4 (two local/global
+#: pairs): over gloo each step all-gathers every rank's quarter of the
+#: weights through host memory, ~10 s a step at full depth
+MESH_SERVE_LAYERS = 4
+SERVE_MESH_LIMIT_S = 540
+CARD_RULE = 0.1                    # phase 8's card = CPU rule (past 1 ulp)
+#: 12d: (arch, shape, mesh, layers traced: None for the config's).
+#: Reduced: gemma3-1b's depth 26 -> 6 (one local/global group) and
+#: dbrx-132b's 40 -> 2, so that their fake traces (~6-10 s a layer on the
+#: card's host) fit the run beside 12a-c
+DRYRUN_CELLS = [("gemma3-1b", "train_4k", "pod1", 6),
+                ("qwen3-32b", "decode_32k", "pod1", None),
+                ("zamba2-1.2b", "long_500k", "pod1", None),
+                ("dbrx-132b", "train_4k", "pod2", 2)]
+DRYRUN_GATE = 1                    # the cell traced again on "cpu"
+DRYRUN_LIMIT_S = 720
+
+
+def recording(model):
+    """Wrap ``model``'s ``prefill`` and ``decode_step`` to keep each
+    call's logits (whole, float32, on the host) in the returned list;
+    ``del model.prefill, model.decode_step`` unwraps."""
+    seen = []
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            caches, logits = fn(*args, **kwargs)
+            whole = logits.full_tensor() if hasattr(logits, "full_tensor") \
+                else logits
+            seen.append(whole.float().cpu())
+            return caches, logits
+        return call
+    model.prefill = wrap(model.prefill)
+    model.decode_step = wrap(model.decode_step)
+    return seen
+
+
+def serve_traffic(model, mesh, prompts, s_cap, max_new):
+    """``launch.serve.serve`` over ``prompts`` on ``ServeEngine(mesh=)``:
+    (every prefill's and step's logits, each request's tokens, each
+    step's milliseconds, the engine)."""
+    from repro_torch.launch import serve as S
+    seen = recording(model)
+    eng = S.ServeEngine(model, len(prompts), prompts[0].shape[0], s_cap,
+                        mesh=mesh)
+    times, step = [], eng.step
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    eng.step = timed
+    S.serve(eng, prompts, max_new)
+    del model.prefill, model.decode_step
+    eng.step = step
+    return seen, [eng.outputs[i] for i in range(len(prompts))], times, eng
+
+
+def step_comm(eng):
+    """Collectives of one engine step by type (``CommDebugMode``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    comm = CommDebugMode()
+    with comm:
+        eng.step()
+    return {str(k).split(".")[-1]: v
+            for k, v in comm.get_comm_counts().items()}
+
+
+def own_syncs(fn):
+    """Synchronizing CUDA calls of ``fn`` outside ``torch.distributed``
+    (gloo stages CUDA tensors through the host inside it)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        caught.clear()
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchronizing" in str(w.message)
+            and f"{os.sep}distributed{os.sep}" not in w.filename]
+
+
+def digest(t):
+    """A tensor's bytes' SHA-256 (the same on every process)."""
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def serve_mesh_rank(rank, world, init, out_dir):
+    """One rank of 12b-c's world: gemma2-9b at full width and depth on
+    (2, 2), gloo on one card (NCCL with a card a rank where there are
+    four)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import batch_spec, cache_specs
+    from repro_torch.models.base import placements
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    backend = mesh_backend(world)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=SERVE_MESH_LIMIT_S))
+    if backend == "gloo":
+        route_gloo_all_gather()
+    out = pathlib.Path(out_dir)
+    try:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+        cfg = get_config("gemma2-9b", n_layers=MESH_SERVE_LAYERS)
+        mesh = make_host_mesh(2)
+        t0 = time.perf_counter()
+        model = built(cfg, dev, SEED + 1200)[0].distribute_(mesh)
+        free()
+        torch.cuda.synchronize()
+        res = {"backend": backend, "init_s": time.perf_counter() - t0,
+               "params": model.param_count()}
+        g, q = SERVE_MESH, SEQ_MESH
+        prompts = cli_prompts(g["slots"], g["plen"], cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        seen, outs, times, eng = serve_traffic(
+            model, mesh, prompts, g["plen"] + g["max_new"] + 8,
+            g["max_new"])
+        specs = cache_specs(model.cache_spec(eng.slots, eng.s_cap), mesh)
+        vec = placements(batch_spec(mesh, 1, eng.slots), mesh)
+        placed = all(buf.placements == placements(specs[i][n], mesh)
+                     for i, layer in enumerate(eng.caches)
+                     for n, buf in layer.items()) and \
+            eng.cur.placements == vec and eng.pos.placements == vec
+        res.update(b_peak=peak_gib(), b_times=times, b_placed=bool(placed),
+                   b_comm=step_comm(eng), b_own_syncs=own_syncs(eng.step),
+                   b_outs=outs)
+        everyone = [None] * world
+        dist.all_gather_object(everyone, [digest(t) for t in seen]
+                               + [outs])
+        res["b_ranks_equal"] = all(e == everyone[0] for e in everyone)
+        if rank == 0:
+            torch.save(seen, out / "b_mesh.pt")
+            print(f"  [12b: {time.perf_counter() - t0:.1f} s]", flush=True)
+        del eng, seen
+        free()
+        prompt = cli_prompts(1, q["plen"], cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        seen, outs, times, eng = serve_traffic(model, mesh, prompt,
+                                               q["s_cap"], q["steps"])
+        everyone = [None] * world
+        dist.all_gather_object(everyone, [digest(t) for t in seen]
+                               + [outs])
+        res.update(c_peak=peak_gib(), c_times=times, c_outs=outs,
+                   c_ranks_equal=all(e == everyone[0] for e in everyone),
+                   c_layout=[str(p) for p in eng.caches[0]["k"].placements],
+                   c_seq_split=all(buf.placements[0].is_shard(1)
+                                   for layer in eng.caches
+                                   for buf in layer.values()),
+                   c_comm=step_comm(eng))
+        if rank == 0:
+            torch.save(seen, out / "c_mesh.pt")
+            (out / "world.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_mesh_plain(device, out):
+    """12b-c's mesh-less runs in this process (gemma2-9b at their depth),
+    their logits saved for the report."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma2-9b", n_layers=MESH_SERVE_LAYERS)
+    g, q = SERVE_MESH, SEQ_MESH
+    model, _ = built(cfg, device, SEED + 1200)
+    plain, outs, times, _ = serve_traffic(
+        model, None, cli_prompts(g["slots"], g["plen"], cfg.vocab_size),
+        g["plen"] + g["max_new"] + 8, g["max_new"])
+    torch.save(plain, out / "b_plain.pt")
+    seq, c_outs, c_times, _ = serve_traffic(
+        model, None, cli_prompts(1, q["plen"], cfg.vocab_size), q["s_cap"],
+        q["steps"])
+    torch.save(seq, out / "c_plain.pt")
+    del model, plain, seq
+    free()
+    return {"b_plain_times": times, "b_plain_outs": outs,
+            "c_plain_times": c_times, "c_plain_outs": c_outs}
+
+
+def serve_mesh_one(device, out):
+    """12a in this process: gemma2-9b at full width and depth mesh-less,
+    then the same model on a (1, 1) mesh in a world of one rank
+    (destroyed after)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config("gemma2-9b")
+    g = SERVE_MESH
+    prompts = cli_prompts(g["slots"], g["plen"], cfg.vocab_size)
+    s_cap = g["plen"] + g["max_new"] + 8
+    model, init_s = built(cfg, device, SEED + 1200)
+    torch.cuda.reset_peak_memory_stats()
+    plain, outs, times, _ = serve_traffic(model, None, prompts, s_cap,
+                                          g["max_new"])
+    res = {"init_s": init_s, "plain_peak": peak_gib(), "plain_times": times,
+           "plain_outs": outs}
+    store = out / f"one_store.{os.getpid()}"
+    store.unlink(missing_ok=True)
+    dist.init_process_group(mesh_backend(1), init_method=f"file://{store}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1)
+        model.distribute_(mesh)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        seen, one_outs, one_times, _ = serve_traffic(model, mesh, prompts,
+                                                     s_cap, g["max_new"])
+        res.update(one_peak=peak_gib(), one_times=one_times,
+                   one_outs=one_outs, n_logits=len(seen),
+                   one_differ=[i for i, (a, b) in enumerate(zip(seen, plain))
+                               if not torch.equal(a, b)]
+                   + ([-1] if len(seen) != len(plain) else []))
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    del model, seen, plain
+    free()
+    return res
+
+
+def dryrun_cells(out_path):
+    """12e and 12d in a process of its own: the profiler's launch counts
+    (this process has traced nothing before: in one whose profiler
+    traced phase 10's training steps, torch 2.11's next sessions may
+    record no device events), then the dry run's cells (fake worlds of
+    256 and 512 ranks, cuda meshes), the gate's cell again on "cpu", and
+    ``python -m repro_torch.launch.dryrun --list``."""
+    from repro_torch.launch import dryrun as D
+    res = {"launches": kernel_launch_counts(torch.device("cuda", 0)),
+           "cells": []}
+    t0 = time.perf_counter()
+    listed = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--list"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    res["list"] = [listed.returncode, len(listed.stdout.split("\n")) - 1,
+                   time.perf_counter() - t0]
+    for arch, shape, mesh, layers in DRYRUN_CELLS:
+        res["cells"].append(D.run_cell(arch, shape, mesh, layers and {
+            "n_layers": layers}))
+    arch, shape, mesh, layers = DRYRUN_CELLS[DRYRUN_GATE]
+    res["gate"] = D.run_cell(arch, shape, mesh, layers and {
+        "n_layers": layers}, device_type="cpu")
+    pathlib.Path(out_path).write_text(json.dumps(res))
+
+
+def kernel_launch_counts(device):
+    """12e: ``roofline.count_kernel_launches`` against the launch
+    counters and ``bank.launch_count``."""
+    from repro_torch import designs
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.roofline import count_kernel_launches
+    rng = np.random.default_rng(SEED + 1300)
+    out = {}
+
+    def counted(label, fn, args, want):
+        before = sum(launch_counts().values())
+        got = count_kernel_launches(fn, *args)
+        counters = sum(launch_counts().values()) - before
+        check(got == counters == want, f"12e {label}: profiler {got}, "
+              f"counters {counters}, bank {want}")
+        out[label] = got
+    fused = designs.generate("tp3p5_w32")
+    a, b = operands(rng, (B_MAIN,), 32, device)
+    counted("tp3p5_w32 fused round", fused.mul, (a, b),
+            fused.bank.launch_count(B_MAIN))
+    check(out["tp3p5_w32 fused round"] == 1, f"12e: {out}")
+    spec = dataclasses.replace(designs.get("tbl8_w128_strict"),
+                               backend="kernel")
+    per = designs.generate(spec)
+    a2, b2 = operands(rng, (B_MAIN,), spec.bits_a, device)
+    counted("tbl8_w128_strict kernel round", per.mul, (a2, b2),
+            per.bank.launch_count(B_MAIN))
+    check(out["tbl8_w128_strict kernel round"]
+          == len(per.bank.instances), f"12e: {out}")
+
+    def two(x, y):
+        fused.mul(x, y)
+        fused.mul(y, x)
+    counted("two fused rounds", two, (a, b),
+            2 * fused.bank.launch_count(B_MAIN))
+    return out
+
+
+def phase_serve_mesh(smi):
+    """Phase 12: serving on a mesh (12a-c), and alongside in a process
+    of its own the profiler's launch count (12e) and the dry run
+    (12d)."""
+    import torch.multiprocessing as mp
+    print(f"phase 12: serving on a mesh and the dry run [{smi}]")
+    device = torch.device("cuda", 0)
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    dry_out = work / f"dryrun.{os.getpid()}.json"
+    dry_out.unlink(missing_ok=True)
+    dry = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
+         "import chip_smoke as C; C.dryrun_cells(sys.argv[1])",
+         str(dry_out)], cwd=ROOT)
+    try:
+        a = serve_mesh_one(device, work)
+        a.update(serve_mesh_plain(device, work))
+        print(f"  [12a and 12b-c's mesh-less runs: "
+              f"{time.perf_counter() - t0:.1f} s]", flush=True)
+        store = work / f"serve_store.{os.getpid()}"
+        store.unlink(missing_ok=True)
+        t1 = time.perf_counter()
+        ctx = mp.spawn(serve_mesh_rank, args=(MESH_WORLD, f"file://{store}",
+                                              str(work)),
+                       nprocs=MESH_WORLD, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t1 > SERVE_MESH_LIMIT_S:
+                    raise RuntimeError(f"phase 12b-c: the world passed "
+                                       f"{SERVE_MESH_LIMIT_S} s")
+            w = json.loads((work / "world.json").read_text())
+            w["wall_s"] = time.perf_counter() - t1
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+            store.unlink(missing_ok=True)
+        report_serve_mesh(a, w, work, smi)
+        t2 = time.perf_counter()
+        dry.wait(timeout=max(DRYRUN_LIMIT_S - (t2 - t0), 1))
+        check(dry.returncode == 0, f"12d-e: their process exited "
+              f"{dry.returncode}")
+        d = json.loads(dry_out.read_text())
+        print(f"  12e roofline.count_kernel_launches (torch.profiler's "
+              f"device events of csrc/'s kernels) = the launch counters = "
+              f"bank.launch_count: {d['launches']}")
+        report_dryrun(d, time.perf_counter() - t0, smi)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        for f in ("b_plain.pt", "c_plain.pt", "b_mesh.pt", "c_mesh.pt",
+                  "world.json", dry_out.name):
+            (work / f).unlink(missing_ok=True)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+
+def report_serve_mesh(a, w, work, smi):
+    """12a-c's gates and figures."""
+    g, q = SERVE_MESH, SEQ_MESH
+    med = statistics.median
+    check(not a["one_differ"], f"12a: logits {a['one_differ']} differ")
+    check(a["one_outs"] == a["plain_outs"], "12a: tokens differ")
+    print(f"  12a (1, 1) mesh, {mesh_backend(1)}: gemma2-9b full width and "
+          f"depth, {g['slots']} x {g['plen']}-token prompts, "
+          f"{g['max_new']} new tokens: all {a['n_logits']} prefill and "
+          f"decode logits and every token bit-equal to the mesh-less "
+          f"engine; step {med(a['one_times']):.1f} ms vs mesh-less "
+          f"{med(a['plain_times']):.1f} ms (median of "
+          f"{len(a['one_times'])}); peak {a['one_peak']:.2f} GiB vs "
+          f"{a['plain_peak']:.2f} GiB [{smi}]")
+    plain, mesh = torch.load(work / "b_plain.pt"), torch.load(
+        work / "b_mesh.pt")
+    first = [rel_err_past_ulp(m, p) for m, p in zip(mesh[:2], plain[:2])]
+    every = [rel_err_past_ulp(m, p) for m, p in zip(mesh, plain)]
+    same = sum(x == y for x, y in zip(w["b_outs"], a["b_plain_outs"]))
+    print(f"  12b (2, 2) ('data', 'model'), {MESH_WORLD} ranks over "
+          f"{w['backend']}: gemma2-9b at full width (reduced: n_layers 42 "
+          f"-> {MESH_SERVE_LAYERS}; {w['params']:,} parameters, drawn and "
+          f"distributed in {w['init_s']:.1f} s), the same traffic: the ranks' tokens "
+          f"and logits {'bit-equal' if w['b_ranks_equal'] else 'DIFFER'}; "
+          f"caches, cur and pos "
+          f"{'at' if w['b_placed'] else 'NOT at'} cache_specs' and "
+          f"batch_spec's placements; prefill and first step against the "
+          f"mesh-less engine {', '.join(f'{e:.4f}' for e in first)} of the "
+          f"std past one bf16 ulp (<= {CARD_RULE}; every step's worst "
+          f"{max(every):.4f}); {same} of {g['slots']} requests' tokens "
+          f"equal the mesh-less engine's; {len(w['b_own_syncs'])} sync a "
+          f"step ({', '.join(w['b_own_syncs'])}); step "
+          f"{med(w['b_times']):.1f} ms (median of {len(w['b_times'])}) vs "
+          f"mesh-less {med(a['b_plain_times']):.1f} ms; collectives a step "
+          f"{w['b_comm']}; peak {w['b_peak']:.2f} GiB a rank [{smi}]")
+    check(w["b_ranks_equal"], "12b: the ranks' tokens or logits differ")
+    check(max(first) <= CARD_RULE, f"12b: first logits {first}")
+    check(w["b_placed"], "12b: caches, cur or pos off their specs")
+    check(len(w["b_own_syncs"]) == STEP_SYNCS,
+          f"12b: {w['b_own_syncs']} syncs a step")
+    plain, mesh = torch.load(work / "c_plain.pt"), torch.load(
+        work / "c_mesh.pt")
+    errs = [rel_err_past_ulp(m, p) for m, p in zip(mesh, plain)]
+    print(f"  12c one slot on (2, 2): a {q['plen']}-token prompt, s_cap "
+          f"{q['s_cap']}, {q['steps']} steps: the first layer's k at "
+          f"{w['c_layout']} (the sequence over 'data'), every logit "
+          f"within {max(errs):.4f} of the std past one ulp of the "
+          f"mesh-less engine (<= {CARD_RULE}); tokens "
+          f"{'equal' if w['c_outs'] == a['c_plain_outs'] else 'differ'}; "
+          f"step {med(w['c_times']):.1f} ms vs mesh-less "
+          f"{med(a['c_plain_times']):.1f} ms; the merge's collectives a "
+          f"step {w['c_comm']}; peak {w['c_peak']:.2f} GiB a rank; world "
+          f"{w['wall_s']:.1f} s [{smi}]")
+    check(len(mesh) == len(plain) and max(errs) <= CARD_RULE,
+          f"12c: {errs}")
+    check(w["c_ranks_equal"], "12c: the ranks' tokens or logits differ")
+    check(w["c_seq_split"], f"12c: the caches' sequence is not split "
+          f"over 'data': {w['c_layout']}")
+
+
+def report_dryrun(d, elapsed, smi):
+    """12d's lines and its gate."""
+    from repro_torch.launch.dryrun import summary
+    rc, n, list_s = d["list"]
+    check(rc == 0 and n > 0, f"12d: --list gave {rc}, {n} cells")
+    print(f"  12d python -m repro_torch.launch.dryrun --list: {n} cells "
+          f"({list_s:.1f} s)")
+    for (arch, shape, mesh, layers), res in zip(DRYRUN_CELLS, d["cells"]):
+        cut = f" (reduced: n_layers -> {layers})" if layers else ""
+        print(f"  12d {summary(res)}{cut}; model flops a rank "
+              f"{res['model_flops_per_device']:.4e} [{smi}]")
+    gate, cell = d["gate"], d["cells"][DRYRUN_GATE]
+    keys = ("flops_per_device", "bytes_per_device", "collectives",
+            "link_bytes_per_device")
+    differ = [k for k in keys if gate[k] != cell[k]]
+    check(not differ, f"12d: the cpu trace differs in {differ}")
+    print(f"  12d gate: {cell['arch']} {cell['shape']} traced again with "
+          f"device_type='cpu' gives the same flops, bytes and collectives;"
+          f" 12d-e done {elapsed:.1f} s after phase 12 began, alongside "
+          f"12a-c")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3119,6 +3583,7 @@ def main():
     phase_families(device, smi)
     phase_training(device, smi)
     phase_mesh(smi)
+    phase_serve_mesh(smi)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

@@ -30,10 +30,12 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs import ARCH_NAMES, get_config
 from ..device import resolve_device
 from ..models import build_model
+from ..models.base import shard_slice
 from ..rng import random_tokens
 
 #: the families whose model ``ServeEngine`` drives (token prompts)
@@ -41,24 +43,66 @@ SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class ServeEngine:
-    """Fixed-slot continuous batching around prefill + decode_step."""
+    """Fixed-slot continuous batching around prefill + decode_step.
 
-    def __init__(self, model, slots: int, prompt_len: int, s_cap: int):
-        self.model = model
+    With a ``mesh`` (the model distributed on it, ``Model.distribute_``)
+    the slots' caches are DTensors at ``cache_specs``' placements and
+    ``cur``/``pos`` at ``batch_spec``'s; a burst's prefill is placed by
+    its own batch (replicated over the data axes when it does not divide
+    them) and each rank copies the rows of its own slots."""
+
+    def __init__(self, model, slots: int, prompt_len: int, s_cap: int,
+                 mesh=None):
+        self.model, self.mesh = model, mesh
         self.slots = slots
         self.prompt_len = prompt_len
         self.s_cap = s_cap
         self.caches = None
-        self.pos = torch.zeros((slots,), dtype=torch.int64,
-                               device=model.device)
-        self.cur = torch.zeros((slots,), dtype=torch.int64,
-                               device=model.device)
+        self.pos = self._slot_vector()
+        self.cur = self._slot_vector()
         self.live = np.zeros((slots,), bool)
         self.outputs = {}          # request_id -> generated tokens
         self.request_of_slot = [-1] * slots
         self.cycle = 0             # engine steps taken (decode cycles)
         self._arrivals = []        # (request_id, admission cycle)
         self._completions = {}     # request_id -> completion cycle
+
+    def _slot_vector(self):
+        """(slots,) int64 zeros; on the mesh at ``batch_spec``'s
+        placements."""
+        if self.mesh is None:
+            return torch.zeros((self.slots,), dtype=torch.int64,
+                               device=self.model.device)
+        from torch.distributed.tensor import zeros
+        from ..models.base import placements
+        from .sharding import batch_spec
+        return zeros((self.slots,), dtype=torch.int64,
+                     device_mesh=self.mesh, placements=placements(
+                         batch_spec(self.mesh, 1, self.slots), self.mesh))
+
+    def _local_slots(self, t, slots):
+        """(positions in the local shard of DTensor ``t``, rows of the
+        burst) of the ``slots`` whose dim-0 entry this rank holds."""
+        held = shard_slice(t, 0)
+        pairs = [(s - held.start, r) for r, s in enumerate(slots)
+                 if held.start <= s < held.stop]
+        return [p for p, _ in pairs], [r for _, r in pairs]
+
+    def _put(self, full, batched, slots):
+        """Rows of ``batched`` (a burst's tensor) into the DTensor ``full``
+        at ``slots`` (dim 0), in place: each rank copies the rows of its
+        own slots from the burst brought to ``full``'s placements, whole
+        over the batch."""
+        if isinstance(batched, DTensor):
+            batched = batched.redistribute(self.mesh, tuple(
+                Replicate() if pl.is_shard(0) else pl
+                for pl in full.placements)).to_local()
+        idx, rows = self._local_slots(full, slots)
+        if idx:
+            full = full.to_local()
+            dev = full.device
+            full[torch.tensor(idx, device=dev)] = batched[
+                torch.tensor(rows, device=dev)].to(full.dtype)
 
     def admit(self, request_id: int, prompt: np.ndarray) -> None:
         self.admit_many([(request_id, prompt)])
@@ -89,16 +133,27 @@ class ServeEngine:
             slots = [free.pop(0) for _ in group]
             tokens = torch.as_tensor(np.stack([p for _, p in group]))
             caches, logits = self.model.prefill({"tokens": tokens},
-                                                s_cap=self.s_cap)
+                                                s_cap=self.s_cap,
+                                                mesh=self.mesh)
             toks = torch.argmax(logits, -1)
+            if self.mesh is not None:
+                toks = toks.full_tensor()
             if self.caches is None:
-                self.caches = self.model.init_cache(self.slots, self.s_cap)
-            idx = torch.tensor(slots, device=self.model.device)
-            for full, batched in zip(self.caches, caches):
-                for name, buf in full.items():
-                    buf[idx] = batched[name]
-            self.pos[idx] = plen
-            self.cur[idx] = toks
+                self.caches = self.model.init_cache(self.slots, self.s_cap,
+                                                    self.mesh)
+            if self.mesh is None:
+                idx = torch.tensor(slots, device=self.model.device)
+                for full, batched in zip(self.caches, caches):
+                    for name, buf in full.items():
+                        buf[idx] = batched[name]
+                self.pos[idx] = plen
+                self.cur[idx] = toks
+            else:
+                for full, batched in zip(self.caches, caches):
+                    for name, buf in full.items():
+                        self._put(buf, batched[name], slots)
+                self._put(self.pos, torch.full_like(toks, plen), slots)
+                self._put(self.cur, toks, slots)
             for slot, (rid, _), tok in zip(slots, group, toks.tolist()):
                 self.live[slot] = True
                 self.request_of_slot[slot] = rid
@@ -117,11 +172,13 @@ class ServeEngine:
         """One decode step over every slot, finished ones included (their
         tokens are dropped)."""
         self.cycle += 1
-        self.caches, logits = self.model.decode_step(self.caches, self.cur,
-                                                     self.pos)
+        self.caches, logits = self.model.decode_step(
+            self.caches, self.cur, self.pos, mesh=self.mesh)
         nxt = torch.argmax(logits, -1)
         self.pos = self.pos + 1
         self.cur = nxt
+        if self.mesh is not None:
+            nxt = nxt.full_tensor()
         for slot, tok in enumerate(nxt.tolist()):
             if self.live[slot]:
                 self.outputs[self.request_of_slot[slot]].append(tok)

@@ -4,6 +4,7 @@
   model.init(torch.Generator(model.device).manual_seed(0))
   caches, logits = model.prefill({"tokens": tokens}, s_cap)
   caches, logits = model.decode_step(caches, token, pos)
+  batch  = model.train_input_specs(shape) / prefill_input_specs(shape)
   model.requires_grad_(True)
   loss = model.train_loss({"tokens": t, "labels": l, "mask": m})
 
@@ -33,7 +34,9 @@ On a ``torch.distributed`` mesh, :meth:`Model.param_specs` gives each
 parameter the reference's spec (its stacked leaf's, less the stack
 axes), :meth:`Model.distribute_` turns the parameters into DTensors at
 those placements (each rank keeps its chunk of the full, seeded values),
-and ``train_loss(batch, mesh)`` trains on DTensor batches.
+``train_loss(batch, mesh)`` trains on DTensor batches, and
+``prefill(batch, s_cap, mesh)`` / ``decode_step(caches, token, pos,
+mesh)`` serve on DTensor caches (``init_cache(batch, s_cap, mesh)``).
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ import torch
 from torch import nn
 
 from . import base, encoder, hybrid, ssm, transformer as tfm, vlm
-from ..configs.base import ArchConfig
+from .transformer import TensorSpec
+from ..configs.base import ArchConfig, ShapeCfg
 from ..device import resolve_device
 
 
@@ -229,37 +233,65 @@ class Model(_Block):
         return int(total - expert_p + active)
 
     # ---------------- steps ----------------
+    def _on(self, mesh):
+        """Refuse a mesh the model is not distributed on."""
+        if mesh is not None and self.mesh is not mesh:
+            raise ValueError("a step on a mesh the model is not "
+                             "distributed on (Model.distribute_)")
+
+    def _input(self, t, mesh):
+        """An input leaf on the model's device; on a ``mesh`` a DTensor
+        at ``batch_spec``'s placements (a DTensor stays as it is)."""
+        if isinstance(t, base.DTensor):
+            return t
+        t = torch.as_tensor(t, device=self.device)
+        if mesh is None:
+            return t
+        from ..launch.sharding import batch_spec
+        return base.distribute(t, mesh, base.placements(
+            batch_spec(mesh, t.ndim, t.shape[0]), mesh))
+
     @torch.no_grad()
-    def prefill(self, batch, s_cap=None):
+    def prefill(self, batch, s_cap=None, mesh=None):
         """``batch["tokens"]`` (B, S) -> (caches, last logits (B, V));
         the encoder takes ``batch["frames"]`` and returns (None, logits
-        (B, T, V)); the VLM takes ``image_embeds`` and ``tokens``."""
+        (B, T, V)); the VLM takes ``image_embeds`` and ``tokens``.  On a
+        ``mesh`` (the model distributed on it) the inputs are placed by
+        ``batch_spec``, the caches come at ``cache_specs``' placements
+        and the logits batch-split over the data axes."""
+        self._on(mesh)
         f, cfg = self.cfg.family, self.cfg
 
         def arg(name):
-            return torch.as_tensor(batch[name], device=self.device)
+            return self._input(batch[name], mesh)
         if f in ("dense", "moe"):
             return tfm.lm_prefill(self, arg("tokens"), cfg, s_cap,
-                                  embed_scale=_gemma_like(cfg))
+                                  embed_scale=_gemma_like(cfg), mesh=mesh)
         if f in ("ssm", "hybrid"):
-            return hybrid.lm_prefill(self, arg("tokens"), cfg, s_cap)
+            return hybrid.lm_prefill(self, arg("tokens"), cfg, s_cap, mesh)
         if f == "encoder":
-            return None, encoder.encoder_forward(self, arg("frames"), cfg)
+            return None, encoder.encoder_forward(self, arg("frames"), cfg,
+                                                 mesh)
         return vlm.vlm_prefill(self, arg("image_embeds"), arg("tokens"), cfg,
-                               s_cap)
+                               s_cap, mesh)
 
     @torch.no_grad()
-    def decode_step(self, caches, token, pos):
+    def decode_step(self, caches, token, pos, mesh=None):
         """token, pos: (B,) ints.  Returns (caches, logits (B, V)); the
-        caches are updated in place."""
+        caches are updated in place.  On a ``mesh`` the caches are
+        :meth:`init_cache`'s DTensors and token, pos are placed by
+        ``batch_spec``."""
+        self._on(mesh)
         f, cfg = self.cfg.family, self.cfg
+        token, pos = self._input(token, mesh), self._input(pos, mesh)
         if f in ("dense", "moe"):
             return tfm.lm_decode_step(self, caches, token, pos, cfg,
-                                      embed_scale=_gemma_like(cfg))
+                                      embed_scale=_gemma_like(cfg),
+                                      mesh=mesh)
         if f in ("ssm", "hybrid"):
-            return hybrid.lm_decode_step(self, caches, token, pos, cfg)
+            return hybrid.lm_decode_step(self, caches, token, pos, cfg, mesh)
         if f == "vlm":
-            return vlm.vlm_decode_step(self, caches, token, pos, cfg)
+            return vlm.vlm_decode_step(self, caches, token, pos, cfg, mesh)
         raise ValueError(f"{f} has no decode step")
 
     def cache_spec(self, batch: int, s_cap: int) -> list:
@@ -272,9 +304,51 @@ class Model(_Block):
             return hybrid.hybrid_cache_spec(self.cfg, batch, s_cap)
         raise ValueError(f"{f} has no cache")
 
-    def init_cache(self, batch: int, s_cap: int) -> list:
-        """Zeroed caches of :meth:`cache_spec` on the model's device."""
-        return tfm.init_cache(self.cache_spec(batch, s_cap), self.device)
+    def init_cache(self, batch: int, s_cap: int, mesh=None) -> list:
+        """Zeroed caches of :meth:`cache_spec` on the model's device; on
+        a ``mesh`` DTensors at ``launch.sharding.cache_specs``'
+        placements."""
+        return tfm.init_cache(self.cache_spec(batch, s_cap), self.device,
+                              mesh)
+
+    # ---------------- abstract inputs (dry run) ----------------
+    def abstract_params(self) -> dict:
+        """The reference's parameter tree (scan axes stacked) as meta
+        tensors of its shapes and dtypes."""
+        return base.abstract_params(self.template())
+
+    def train_input_specs(self, shape: ShapeCfg) -> dict:
+        """``{name: TensorSpec}`` of a train batch of ``shape``."""
+        b, s = shape.global_batch, shape.seq_len
+        f, i32 = self.cfg.family, torch.int32
+        if f == "encoder":
+            return {"frames": TensorSpec((b, s, encoder.D_FRONTEND),
+                                         torch.bfloat16),
+                    "mask": TensorSpec((b, s), torch.bool),
+                    "labels": TensorSpec((b, s), i32)}
+        if f == "vlm":
+            nv, dv = self.cfg.n_vis_tokens, self.cfg.d_vis
+            st = s - nv
+            return {"image_embeds": TensorSpec((b, nv, dv), torch.bfloat16),
+                    "tokens": TensorSpec((b, st), i32),
+                    "labels": TensorSpec((b, st), i32),
+                    "mask": TensorSpec((b, st), torch.float32)}
+        return {"tokens": TensorSpec((b, s), i32),
+                "labels": TensorSpec((b, s), i32),
+                "mask": TensorSpec((b, s), torch.float32)}
+
+    def prefill_input_specs(self, shape: ShapeCfg) -> dict:
+        """``{name: TensorSpec}`` of a prefill batch of ``shape``."""
+        b, s = shape.global_batch, shape.seq_len
+        f = self.cfg.family
+        if f == "encoder":
+            return {"frames": TensorSpec((b, s, encoder.D_FRONTEND),
+                                         torch.bfloat16)}
+        if f == "vlm":
+            nv, dv = self.cfg.n_vis_tokens, self.cfg.d_vis
+            return {"image_embeds": TensorSpec((b, nv, dv), torch.bfloat16),
+                    "tokens": TensorSpec((b, s - nv), torch.int32)}
+        return {"tokens": TensorSpec((b, s), torch.int32)}
 
     def train_loss(self, batch, mesh=None):
         """Mean cross-entropy of ``batch``: ``tokens``, ``labels`` and

@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
 
 from .base import batch_placed, local_map, mesh_names, mesh_shape
@@ -55,11 +56,21 @@ def _chunk_mask(qpos, kpos, kind: str, window, prefix_len):
     return m
 
 
-def _score_block(q_blk, k_blk, scale, logit_cap, msk):
+def _all_reduce(t, group, op=None):
+    """``t`` summed (or ``op``) over ``group`` in place; ``t`` itself
+    when ``group`` is ``None``."""
+    if group is not None:
+        dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _score_block(q_blk, k_blk, scale, logit_cap, msk, hd_group=None):
     # q_blk: (B, qc, KV, G, D), k_blk: (B, kc, KV, D), float64 copies of
-    # the working-dtype values -> (B, KV, G, qc, kc) float32
-    s = torch.einsum("bqkgd,bskd->bkgqs", q_blk,
-                     k_blk).to(torch.float32) * scale
+    # the working-dtype values -> (B, KV, G, qc, kc) float32; with
+    # ``hd_group`` D is this rank's share of head_dim and the float64
+    # dots are summed over the group before they round
+    s = _all_reduce(torch.einsum("bqkgd,bskd->bkgqs", q_blk, k_blk),
+                    hd_group).to(torch.float32) * scale
     if logit_cap is not None:
         s = torch.tanh(s / logit_cap) * logit_cap
     if msk is not None:
@@ -234,7 +245,9 @@ def _quant_rows(xf):
 
 
 def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, valid, *,
-                          logit_cap: float | None = None) -> torch.Tensor:
+                          logit_cap: float | None = None,
+                          hd_cols: slice | None = None, hd_group=None,
+                          seq_group=None) -> torch.Tensor:
     """Integer-domain decode attention over an int8 KV cache.
 
     The int8 QK^T dot is the PPM, the int32 accumulator the carry-free
@@ -245,6 +258,12 @@ def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, valid, *,
 
     q: (B, 1, H, D) bf16;  k_q/v_q: (B, S, KV, D) int8;
     k_scale/v_scale: (B, S, KV) f32;  valid: (B, S) bool.
+
+    On sharded caches (the mesh's decode): ``hd_cols`` are the columns of
+    head_dim the caches hold (q is quantized whole, then sliced) and the
+    integer dots are summed over ``hd_group``; with ``seq_group`` the
+    caches hold a stretch of the sequence and the softmax's max and sum,
+    the probabilities' max and the integer P.V sum over it.
     """
     b, _, h, d = q.shape
     s, kv = k_q.shape[1], k_q.shape[2]
@@ -252,28 +271,40 @@ def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, valid, *,
     scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, 1, kv, g, d)
     q8, qs = _quant_rows(qg.to(torch.float32))    # per (b, kv, g) row
+    if hd_cols is not None:
+        q8 = q8[..., hd_cols]
 
-    scores_i = int_einsum("bqkgd,bskd->bkgqs", q8, k_q)
+    scores_i = _all_reduce(int_einsum("bqkgd,bskd->bkgqs", q8, k_q),
+                           hd_group)
     qs_b = qs[:, 0][..., None]                             # (B,KV,G,1,1)
     ks_b = k_scale.permute(0, 2, 1)[:, :, None, None, :]   # (B,KV,1,1,S)
     scores = scores_i.to(torch.float32) * qs_b * ks_b * scale
     if logit_cap is not None:
         scores = torch.tanh(scores / logit_cap) * logit_cap
     scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)                  # (B,KV,G,1,S)
+    if seq_group is None:
+        probs = torch.softmax(scores, dim=-1)              # (B,KV,G,1,S)
+    else:
+        top = _all_reduce(scores.amax(-1, keepdim=True), seq_group,
+                          dist.ReduceOp.MAX)
+        e = torch.exp(scores - top)
+        probs = e / _all_reduce(e.sum(-1, keepdim=True), seq_group)
     # fold V scales into probs, then quantize probs
     pv = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
-    pmax = torch.amax(pv, dim=-1, keepdim=True)
+    pmax = _all_reduce(torch.amax(pv, dim=-1, keepdim=True), seq_group,
+                       dist.ReduceOp.MAX)
     ps = torch.where(pmax == 0, 1.0, pmax / pmax.new_full((), 127.0))
     p8 = torch.clamp(torch.round(pv / ps), -127, 127).to(torch.int8)
-    out_i = int_einsum("bkgqs,bskd->bqkgd", p8, v_q)
+    out_i = _all_reduce(int_einsum("bkgqs,bskd->bqkgd", p8, v_q),
+                        seq_group)
     out = out_i.to(torch.float32) \
         * torch.movedim(ps, 4, 1).reshape(b, 1, kv, g, 1)
-    return out.reshape(b, 1, h, d).to(torch.bfloat16)
+    return out.reshape(b, 1, h, -1).to(torch.bfloat16)
 
 
 def decode_attention(q, k_cache, v_cache, valid, *,
-                     logit_cap: float | None = None) -> torch.Tensor:
+                     logit_cap: float | None = None, head_dim=None,
+                     hd_group=None, seq_group=None) -> torch.Tensor:
     """Single-token attention over a (possibly ring) KV cache.
 
     q: (B, 1, H, D); k_cache/v_cache: (B, S, KV, D) with keys pre-roped;
@@ -284,14 +315,24 @@ def decode_attention(q, k_cache, v_cache, valid, *,
     ``decode_attention`` rounds the normalized softmax to the working
     dtype instead of P = exp(s - max), which alone parts its decode from
     its prefill by 0.15 of the logits' std over gemma2-9b's 42 layers.)
+
+    On sharded caches (the mesh's decode): with ``hd_group`` q and the
+    caches hold a share of head_dim (``head_dim`` the whole, for the
+    scale) and the scores are float64 partial sums over the group; with
+    ``seq_group`` the caches hold a stretch of the sequence, and the
+    ranks' max, float64 sum and P.V merge over the group (a log-sum-exp
+    whose exponents are those of the whole cache).
     """
     b, _, h, d = q.shape
     kv = k_cache.shape[2]
     g = h // kv
     s = _score_block(q.reshape(b, 1, kv, g, d).to(torch.float64),
-                     k_cache.to(torch.float64), 1.0 / math.sqrt(d),
-                     logit_cap, valid[:, None, None, None, :])
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    out = _pv_block(p, v_cache.to(torch.float64), v_cache.dtype) \
-        / p.sum(-1, dtype=torch.float64)[..., None]
+                     k_cache.to(torch.float64),
+                     1.0 / math.sqrt(head_dim or d), logit_cap,
+                     valid[:, None, None, None, :], hd_group)
+    p = torch.exp(s - _all_reduce(s.amax(-1, keepdim=True), seq_group,
+                                  dist.ReduceOp.MAX))
+    out = _all_reduce(_pv_block(p, v_cache.to(torch.float64),
+                                v_cache.dtype), seq_group) \
+        / _all_reduce(p.sum(-1, dtype=torch.float64), seq_group)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, d).to(v_cache.dtype)

@@ -22,12 +22,13 @@ axes to a :class:`P` over a mesh's axis names ("batch" -> the data axes,
 "fsdp" -> "data", "model" -> "model"), dropping an axis whose size does
 not divide the dim.  On a ``torch.distributed`` ``DeviceMesh`` a spec
 becomes DTensor placements (:func:`placements`), :func:`constrain`
-becomes ``redistribute``, and the training path runs on DTensors:
+becomes ``redistribute``, and the mesh path runs on DTensors:
 
   * a parameter is gathered over the data axes where it is used
     (:func:`gathered`, FSDP) and keeps its model-axis shard; a matmul
     whose output comes back ``Partial`` over the model axis is reduced
-    at once (:func:`matmul`);
+    at once (:func:`matmul`; serving runs its fixed-shape calls on each
+    rank's shards);
   * a computation DTensor has no rule for (a lookup, the attention, the
     expert dispatch, the SSD scan, the loss) runs on each rank's shards
     through :func:`local_map`, which declares the gradient of an input
@@ -109,6 +110,13 @@ def stack(template, n: int, axis_name: str | None = None):
         lambda p: Param((n,) + p.shape, (axis_name,) + p.logical,
                         p.dtype, p.init, p.scale),
         template)
+
+
+def abstract_params(template):
+    """The template's tree with a meta tensor of each leaf's shape and
+    dtype (the reference's ``ShapeDtypeStruct`` tree)."""
+    return _tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                           device="meta"), template)
 
 
 def param_count(template) -> int:
@@ -206,6 +214,19 @@ def local_chunk(t: torch.Tensor, mesh, pls) -> torch.Tensor:
         if isinstance(pl, Shard):
             t = t.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
     return t
+
+
+def shard_slice(t: DTensor, dim: int) -> slice:
+    """The stretch of ``t``'s dim ``dim`` this rank's shard holds (mesh
+    dims that split it, in order, each splitting the one before's chunk;
+    the whole dim if none does)."""
+    mesh = t.device_mesh
+    lo, n = 0, t.shape[dim]
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            n //= mesh.size(i)
+            lo += mesh.get_local_rank(mesh.mesh_dim_names[i]) * n
+    return slice(lo, lo + n)
 
 
 def distribute(t: torch.Tensor, mesh, pls) -> DTensor:
@@ -321,7 +342,12 @@ def mesh_group(mesh, axes: tuple):
         names = mesh.mesh_dim_names
         keep = [names.index(a) for a in axes]
         rest = [i for i in range(len(names)) if i not in keep]
-        ranks = mesh.mesh.permute(*rest, *keep).reshape(
+        # the mesh's rank table is real, also under the dry run's
+        # FakeTensorMode and op counter: read it with no mode active
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            table = mesh.mesh.numpy()
+        ranks = table.transpose(*rest, *keep).reshape(
             -1, math.prod(mesh.size(i) for i in keep))
         mine, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
         _GROUPS[key] = mine
@@ -375,12 +401,19 @@ def matmul(x, w, train: bool = False):
     from one bf16 piece a call, where one product over all rows (the
     reference's einsum) rounds it once.
 
-    A DTensor ``w`` (the mesh path, training only) is :func:`gathered`
-    and multiplied as one DTensor product; a ``Partial`` result (a
-    row-parallel weight) is all-reduced at once.
+    A DTensor ``w`` (the mesh path) is :func:`gathered`.  In training it
+    is multiplied as one DTensor product; serving runs the fixed-shape
+    calls on each rank's rows and its shard of ``w`` (:func:`local_map`),
+    so a row keeps its bits in any batch there too.  A ``Partial`` result
+    (a row-parallel weight) is all-reduced at once.
     """
-    if isinstance(w, DTensor):         # the mesh path (training)
-        return reduced(x @ gathered(w))
+    if isinstance(w, DTensor):         # the mesh path
+        if train:
+            return reduced(x @ gathered(w))
+        return _matmul_local(x, gathered(w))
+    if x.dtype != w.dtype:             # jnp's promotion (bf16 @ f32 -> f32)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     if train:
         return x @ w
     lead, k = x.shape[:-1], x.shape[-1]
@@ -393,6 +426,40 @@ def matmul(x, w, train: bool = False):
     else:
         out = torch.cat([t @ w for t in rows.split(MATMUL_ROWS)])
     return out[:n].reshape(*lead, w.shape[-1])
+
+
+def _matmul_f32(x, w):
+    """:func:`matmul` of ``x`` and ``w`` taken to float32 (products of
+    bf16 values are exact there): a float32 result, unrounded."""
+    return matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def _matmul_local(x: DTensor, w: DTensor) -> DTensor:
+    """:func:`matmul`'s fixed-shape calls on each rank's rows of ``x``
+    against its model-axis shard of a 2-D ``w`` (replicated over the
+    data axes): a column shard gives the output's column shard; a row
+    shard takes ``x``'s last dim split alike (a local slice) and gives
+    float32 partial sums, reduced in float32 and rounded once, as one
+    product over the whole contraction rounds (bf16 partials summed in
+    bf16 would round each row-parallel output three times)."""
+    mesh = w.device_mesh
+    model = w.placements[mesh_names(mesh).index("model")] \
+        if "model" in mesh_names(mesh) else Replicate()
+    x_pl, out_pl, fn = Replicate(), model, matmul
+    if model.is_shard(0):                        # row-parallel
+        x_pl, out_pl = Shard(x.ndim - 1), Partial()
+        if model_sharded(w, mesh):
+            fn = _matmul_f32
+    elif model.is_shard():                       # column-parallel
+        out_pl = Shard(x.ndim - 1)
+    pls = tuple(Replicate() if pl.is_partial() else pl
+                for pl in x.placements)
+    if "model" in mesh_names(mesh):
+        pls = on_model(pls, mesh, x_pl)
+    if pls != tuple(x.placements):
+        x = x.redistribute(mesh, pls)
+    out = local_map(fn, mesh, (x, w), on_model(pls, mesh, out_pl))
+    return reduced(out).to(torch.promote_types(x.dtype, w.dtype))
 
 
 def rms_norm(x, scale, eps: float = 1e-6):

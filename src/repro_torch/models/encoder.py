@@ -62,7 +62,9 @@ def encoder_train_loss(model, batch, cfg: ArchConfig, mesh=None):
         mask.to(torch.float32), chunk=cfg.ce_chunk, mesh=mesh)
 
 
-def encoder_forward(model, frames, cfg: ArchConfig):
-    """Serving path: full-sequence unit logits (B, T, V)."""
-    return base.matmul(_encode(model, frames, None, cfg, "prefill"),
-                       model.lm_head)
+def encoder_forward(model, frames, cfg: ArchConfig, mesh=None):
+    """Serving path: full-sequence unit logits (B, T, V); on a ``mesh``
+    (DTensor ``frames``) batch over the data axes, whole vocabulary."""
+    logits = base.matmul(_encode(model, frames, None, cfg, "prefill", mesh),
+                         model.lm_head)
+    return base.constrain(logits, mesh, "batch", None, None)

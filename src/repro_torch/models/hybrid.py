@@ -101,25 +101,24 @@ def lm_train_loss(model, batch, cfg: ArchConfig, mesh=None):
         chunk=cfg.ce_chunk, final_cap=cfg.final_logit_cap, mesh=mesh)
 
 
-def lm_prefill(model, tokens, cfg: ArchConfig, s_cap=None):
-    """Returns (caches, last_token_logits)."""
+def lm_prefill(model, tokens, cfg: ArchConfig, s_cap=None, mesh=None):
+    """Returns (caches, last_token_logits); on a ``mesh`` (DTensor
+    ``tokens``) DTensor caches at ``cache_specs``' placements."""
     b, s = tokens.shape
     s_cap = s_cap or cfg.max_seq
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    caches = tfm.init_cache(hybrid_cache_spec(cfg, b, s_cap), tokens.device)
-    x = tfm.embed_tokens(model, tokens, cfg, False)
+    caches = tfm.init_cache(hybrid_cache_spec(cfg, b, s_cap), tokens.device,
+                            mesh)
+    x = tfm.embed_tokens(model, tokens, cfg, False, mesh)
     x = stack_apply(model, x, cfg, "prefill", caches=caches,
-                    positions=positions)
-    x = base.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
-    logits = base.matmul(x, tfm.unembed_matrix(model, cfg))
-    return caches, logits[:, 0]
+                    positions=positions, mesh=mesh)
+    return caches, tfm.last_logits(model, x, cfg, mesh)
 
 
-def lm_decode_step(model, caches, token, pos, cfg: ArchConfig):
+def lm_decode_step(model, caches, token, pos, cfg: ArchConfig, mesh=None):
     """token, pos: (B,) ints.  Returns (caches, logits (B, V)); the
     caches are updated in place."""
-    x = tfm.embed_tokens(model, token[:, None], cfg, False)
-    x = stack_apply(model, x, cfg, "decode", caches=caches, pos=pos)
-    x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = base.matmul(x, tfm.unembed_matrix(model, cfg))
-    return caches, logits[:, 0]
+    x = tfm.embed_tokens(model, token[:, None], cfg, False, mesh)
+    x = stack_apply(model, x, cfg, "decode", caches=caches, pos=pos,
+                    mesh=mesh)
+    return caches, tfm.last_logits(model, x, cfg, mesh)

@@ -19,7 +19,7 @@ global dispatch, and the data shards of a mesh its
 ``moe_local_dispatch``; without a mesh the count is explicit, so one
 process computes the routing a mesh does.
 
-On a mesh (training, DTensors) the reference's constrain points become
+On a mesh (DTensors; serving too) the reference's constrain points become
 ``redistribute`` calls: the experts split over the model axis (each
 rank computes its own experts' rows), the routing and the gather and
 scatter run on each rank's tokens (:func:`base.local_map`), and the
@@ -89,7 +89,7 @@ def moe_apply(p, x, cfg: ArchConfig, decode: bool = False,
     xn = base.rms_norm(x, p.norm, cfg.norm_eps)
     logits = router_logits(xn, p.router, mesh)                 # (B,S,E)
     if mesh is not None:
-        return _moe_mesh(p, x, xn, logits, cfg, mesh)
+        return _moe_mesh(p, x, xn, logits, cfg, mesh, decode, train)
     zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     if decode or b * s <= 4 * cfg.n_experts:
@@ -183,30 +183,36 @@ def _experts(p, mesh):
     return ws, first
 
 
-def _moe_mesh(p, x, xn, logits, cfg: ArchConfig, mesh):
-    """:func:`moe_apply` on DTensors."""
+def _moe_mesh(p, x, xn, logits, cfg: ArchConfig, mesh, decode=False,
+              train=True):
+    """:func:`moe_apply` on DTensors.  Serving (``train`` off) takes
+    :func:`base.matmul`'s fixed-shape calls and skips the z-loss, which
+    only training reads (its sum would cost an all-reduce a layer)."""
     b, s, d = x.shape
     e = cfg.n_experts
     data = tuple(base.mesh_names(mesh)[i] for i, pl in
                  enumerate(xn.placements) if pl.is_shard())
-    zsum = base.local_map(
-        lambda lg: torch.sum(torch.logsumexp(lg, dim=-1) ** 2), mesh,
-        (logits,))
-    zloss = base.psum(zsum, mesh, data) / (b * s)
+    zloss = 0.0
+    if train:
+        zsum = base.local_map(
+            lambda lg: torch.sum(torch.logsumexp(lg, dim=-1) ** 2), mesh,
+            (logits,))
+        zloss = base.psum(zsum, mesh, data) / (b * s)
     g = base.axis_size(mesh, data)
-    if b * s <= 4 * e:
-        y = _dense_token_choice_mesh(p, xn, logits, cfg, mesh)
+    if decode or b * s <= 4 * e:
+        y = _dense_token_choice_mesh(p, xn, logits, cfg, mesh, train)
     elif cfg.moe_local_dispatch and g > 1 and b % g == 0:
-        y = _expert_choice_local_mesh(p, xn, logits, cfg, mesh, g)
+        y = _expert_choice_local_mesh(p, xn, logits, cfg, mesh, g, train)
     else:
-        y = _expert_choice_mesh(p, xn, logits, cfg, mesh)
+        y = _expert_choice_mesh(p, xn, logits, cfg, mesh, train)
     if cfg.n_shared_experts:
         y = y + base.swiglu(xn, p.shared.w_gate, p.shared.w_up,
-                            p.shared.w_down, True)
+                            p.shared.w_down, train)
     return constrain(x + y.to(x.dtype), mesh, "batch", None, None), zloss
 
 
-def _dense_token_choice_mesh(p, xn, logits, cfg: ArchConfig, mesh):
+def _dense_token_choice_mesh(p, xn, logits, cfg: ArchConfig, mesh,
+                             train=True):
     """Token choice on DTensors: each rank its tokens and its experts,
     float32 sums over the model axis."""
     ws, first = _experts(p, mesh)
@@ -218,7 +224,7 @@ def _dense_token_choice_mesh(p, xn, logits, cfg: ArchConfig, mesh):
         w = torch.zeros_like(lg).scatter_(-1, topi, gates).to(xl.dtype)
         acc = torch.zeros(xl.shape, dtype=torch.float32, device=xl.device)
         for j in range(wg.shape[0]):
-            y = base.swiglu(xl, wg[j], wu[j], wd[j], True)
+            y = base.swiglu(xl, wg[j], wu[j], wd[j], train)
             acc += y.to(torch.float32) \
                 * w[..., first + j:first + j + 1].to(torch.float32)
         return acc
@@ -228,7 +234,8 @@ def _dense_token_choice_mesh(p, xn, logits, cfg: ArchConfig, mesh):
     return base.reduced(out).to(xn.dtype)
 
 
-def _expert_choice_local_mesh(p, xn, logits, cfg: ArchConfig, mesh, g):
+def _expert_choice_local_mesh(p, xn, logits, cfg: ArchConfig, mesh, g,
+                              train=True):
     """The reference's ``_expert_choice_local`` on DTensors: each data
     shard routes its own tokens; the picked rows go to their experts'
     model ranks (a slice: the tokens are replicated over the model
@@ -250,7 +257,7 @@ def _expert_choice_local_mesh(p, xn, logits, cfg: ArchConfig, mesh, g):
     idx = constrain(idx, mesh, "batch", "model", None)
     ws, _ = _experts(p, mesh)
     y = base.local_map(lambda pl_, wg, wu, wd: _group_ffn(pl_, wg, wu, wd,
-                                                          True),
+                                                          train),
                        mesh, (picked, *ws), picked.placements)
     y = constrain(y, mesh, "batch", "model", None, None)
     y = y * gate[..., None].to(y.dtype)
@@ -263,7 +270,7 @@ def _expert_choice_local_mesh(p, xn, logits, cfg: ArchConfig, mesh, g):
     return constrain(out.to(xn.dtype), mesh, "batch", None, None)
 
 
-def _expert_choice_mesh(p, xn, logits, cfg: ArchConfig, mesh):
+def _expert_choice_mesh(p, xn, logits, cfg: ArchConfig, mesh, train=True):
     """Global expert choice on DTensors (the reference's
     ``_expert_choice`` under a mesh): every rank routes all the tokens;
     the picked rows shard over (experts on "model", capacity on
@@ -286,7 +293,8 @@ def _expert_choice_mesh(p, xn, logits, cfg: ArchConfig, mesh):
     idx = constrain(idx, mesh, "model", "fsdp")
     ws, _ = _experts(p, mesh)
     y = base.local_map(
-        lambda pl_, wg, wu, wd: _group_ffn(pl_[None], wg, wu, wd, True)[0],
+        lambda pl_, wg, wu, wd: _group_ffn(pl_[None], wg, wu, wd,
+                                           train)[0],
         mesh, (picked, *ws), picked.placements)
     y = constrain(y, mesh, "model", "fsdp", None)
     y = y * gate[..., None].to(y.dtype)
@@ -295,6 +303,8 @@ def _expert_choice_mesh(p, xn, logits, cfg: ArchConfig, mesh):
     out = base.local_map(
         lambda yl, il: _group_combine(yl[None], il[None], t)[0], mesh,
         (y, idx), out_pls)
-    out = out.redistribute(mesh, base.placements(base.resolve_logical(
-        ("batch", None), out.shape, mesh), mesh))
+    # the rows of xn's batch shards (a batch the data axes do not divide
+    # stays whole, as xn)
+    out = out.redistribute(mesh, tuple(pl if pl.is_shard(0) else Replicate()
+                                       for pl in xn.placements))
     return out.to(xn.dtype).reshape(b, s, d)

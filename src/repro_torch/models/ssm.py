@@ -15,10 +15,12 @@ adds; decode takes one float32 contraction over the window.
 Decode is the O(1) recurrent step on a carried (state, conv window)
 cache, written in place.
 
-Training runs on a mesh too (DTensors): the projection is replicated
-over the model axis, each rank runs the SSD for its heads (the
-reference's constraint of ``xh`` to heads on "model"), and the gated
-output's matmul is reduced over the model axis.
+Every mode runs on a mesh too (DTensors): the projection is replicated
+over the model axis, each rank runs the SSD (or the decode step) for its
+heads (the reference's constraint of ``xh`` to heads on "model"), and
+the gated output's matmul is reduced over the model axis.  Serving
+writes DTensor caches at ``cache_specs``' placements: each rank its
+rows, conv channels (CH -> "model") and heads' state (H -> "model").
 """
 from __future__ import annotations
 
@@ -102,13 +104,12 @@ def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None, mesh=None):
     the prefill's forward with no cache and one matmul call a
     projection; a ``mesh`` (DTensor ``u``) is the training path's."""
     if mode == "decode":
+        if mesh is not None:
+            return _ssm_decode_mesh(p, u, cfg, cache, mesh)
         return _ssm_decode(p, u, cfg, cache)
-    if mesh is not None:
-        if mode != "train":
-            raise ValueError("the mesh path trains; serving on a mesh is "
-                             "not ported")
-        return _ssm_mesh(p, u, cfg, mesh)
     train = mode == "train"
+    if mesh is not None:
+        return _ssm_mesh(p, u, cfg, mesh, train, cache)
     xn = base.rms_norm(u, p.norm, cfg.norm_eps)
     zxbcdt = base.matmul(xn, p.in_proj, train)
     y, xbc_pre, state = _ssd(zxbcdt, p.conv_w, p.conv_b, p.dt_bias,
@@ -116,35 +117,64 @@ def ssm_apply(p, u, cfg: ArchConfig, mode: str, cache=None, mesh=None):
     out = _gated_out(p, y.to(u.dtype), zxbcdt[..., :cfg.d_inner], u, cfg,
                      train)
     if cache is not None:
-        kw = cfg.ssm_conv_width
-        s_orig = u.shape[1]
-        if s_orig < kw - 1:
-            raise ValueError(f"a prefill needs at least {kw - 1} tokens "
-                             f"(the conv window), got {s_orig}")
-        cache["conv"].copy_(xbc_pre[:, s_orig - (kw - 1):s_orig])
-        cache["state"].copy_(state)
+        _write_prefill_cache(cache, xbc_pre, state, cfg)
     return out
 
 
-def _ssm_mesh(p, u, cfg: ArchConfig, mesh):
-    """:func:`ssm_apply`'s training forward on DTensors."""
-    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
-    zxbcdt = constrain_act(base.matmul(xn, p.in_proj, True), mesh)
-    whole = tuple(Replicate() for _ in base.mesh_names(mesh))
-    prm = [t.redistribute(mesh, whole) for t in (
-        base.gathered(p.conv_w), base.gathered(p.conv_b), p.dt_bias,
-        p.A_log, p.D)]
+def _write_prefill_cache(cache, xbc_pre, state, cfg: ArchConfig,
+                         channels: slice = slice(None)):
+    """The last ``kw - 1`` pre-conv rows (their ``channels``) and the
+    final state into ``cache``, in place."""
+    kw = cfg.ssm_conv_width
+    s_orig = xbc_pre.shape[1]
+    if s_orig < kw - 1:
+        raise ValueError(f"a prefill needs at least {kw - 1} tokens "
+                         f"(the conv window), got {s_orig}")
+    cache["conv"].copy_(xbc_pre[:, s_orig - (kw - 1):s_orig, channels])
+    cache["state"].copy_(state)
+
+
+def _whole(mesh, *ts) -> list:
+    """Parameters replicated on every rank (gathered)."""
+    everywhere = tuple(Replicate() for _ in base.mesh_names(mesh))
+    return [t.redistribute(mesh, everywhere) for t in ts]
+
+
+def _mesh_heads(cfg: ArchConfig, mesh):
+    """(this rank's SSM heads, their model-axis placement): split over
+    the model axis when it divides them (the reference's ``xh`` on
+    ("model") heads, and its state cache's H -> model)."""
     h, m = cfg.n_ssm_heads, base.axis_size(mesh, "model")
-    heads, model_pl = slice(None), Replicate()
-    if m > 1 and h % m == 0:     # the reference's xh on ("model") heads
+    if m > 1 and h % m == 0:
         r = mesh.get_local_rank("model")
-        heads, model_pl = slice(r * h // m, (r + 1) * h // m), Shard(2)
-    y = base.local_map(
-        lambda zl, *ps: _ssd(zl, *ps, cfg, heads)[0].to(zl.dtype), mesh,
-        (zxbcdt, *prm),
-        base.batch_placed(zxbcdt, mesh, model_pl).placements)
+        return slice(r * h // m, (r + 1) * h // m), Shard(2)
+    return slice(None), Replicate()
+
+
+def _ssm_mesh(p, u, cfg: ArchConfig, mesh, train: bool = True,
+              cache=None):
+    """:func:`ssm_apply`'s full-sequence forward on DTensors (training,
+    or a prefill filling a DTensor ``cache`` at ``cache_specs``'
+    placements: each rank its rows, conv channels and heads)."""
+    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
+    zxbcdt = constrain_act(base.matmul(xn, p.in_proj, train), mesh)
+    prm = _whole(mesh, base.gathered(p.conv_w), base.gathered(p.conv_b),
+                 p.dt_bias, p.A_log, p.D)
+    heads, model_pl = _mesh_heads(cfg, mesh)
+    held = () if cache is None else (cache["conv"], cache["state"])
+    channels = None if cache is None else \
+        base.shard_slice(cache["conv"], 2)
+
+    def fn(zl, *ps):
+        y, xbc_pre, state = _ssd(zl, *ps[:5], cfg, heads)
+        if ps[5:]:
+            _write_prefill_cache(dict(zip(("conv", "state"), ps[5:])),
+                                 xbc_pre, state, cfg, channels)
+        return y.to(zl.dtype)
+    y = base.local_map(fn, mesh, (zxbcdt, *prm, *held),
+                       base.batch_placed(zxbcdt, mesh, model_pl).placements)
     y = constrain_act(y, mesh)
-    return _gated_out(p, y, zxbcdt[..., :cfg.d_inner], u, cfg, True, mesh)
+    return _gated_out(p, y, zxbcdt[..., :cfg.d_inner], u, cfg, train, mesh)
 
 
 def _ssd(zxbcdt, conv_w, conv_b, dt_bias, A_log, D, cfg: ArchConfig,
@@ -211,30 +241,70 @@ def _ssd(zxbcdt, conv_w, conv_b, dt_bias, A_log, D, cfg: ArchConfig,
     return y.reshape(b, s, h * pdim)[:, :s_orig], xbc_pre, state
 
 
-def _ssm_decode(p, u, cfg: ArchConfig, cache):
-    """One-token recurrent step. u: (B, 1, D); ``cache`` in place."""
-    b = u.shape[0]
-    di, n, h, pdim = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
-                      cfg.ssm_head_dim)
+def _ssm_step(zxbcdt, conv, state, conv_w, conv_b, dt_bias, A_log, D,
+              cfg: ArchConfig, heads: slice = slice(None)):
+    """The recurrent step of the in-projection's output (B, 1, ...) over
+    ``heads`` from the conv window ``conv`` (B, kw - 1, CH) and
+    ``heads``' ``state`` -> (y (B, 1, heads x P) in zxbcdt's dtype, the
+    next window, the next state)."""
+    b = zxbcdt.shape[0]
+    di, n, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     f32 = torch.float32
-    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
-    z, xbc_pre, dt_raw = _split_proj(base.matmul(xn, p.in_proj), cfg)
+    _, xbc_pre, dt_raw = _split_proj(zxbcdt, cfg)
 
-    window = torch.cat([cache["conv"].to(xbc_pre.dtype), xbc_pre], dim=1)
-    xbc = torch.einsum("bkc,kc->bc", window.to(f32), p.conv_w.to(f32)) \
-        + p.conv_b.to(f32)
-    xbc = F.silu(xbc).to(u.dtype)                               # (B, CH)
+    window = torch.cat([conv.to(xbc_pre.dtype), xbc_pre], dim=1)
+    xbc = torch.einsum("bkc,kc->bc", window.to(f32), conv_w.to(f32)) \
+        + conv_b.to(f32)
+    xbc = F.silu(xbc).to(zxbcdt.dtype)                          # (B, CH)
 
-    xh = xbc[:, :di].reshape(b, h, pdim).to(f32)
+    xh = xbc[:, :di].reshape(b, -1, pdim)[:, heads].to(f32)
     bm = xbc[:, di:di + n].to(f32)
     cm = xbc[:, di + n:].to(f32)
-    dt = _softplus(dt_raw[:, 0].to(f32) + p.dt_bias)
-    da = torch.exp(dt * -torch.exp(p.A_log))                    # (B, H)
+    dt = _softplus(dt_raw[:, 0].to(f32) + dt_bias)[:, heads]
+    da = torch.exp(dt * -torch.exp(A_log[heads]))               # (B, H)
 
-    state = cache["state"] * da[..., None, None] \
+    state = state * da[..., None, None] \
         + bm[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]
-    y = torch.einsum("bn,bhnp->bhp", cm, state) + p.D[None, :, None] * xh
-    y = y.reshape(b, 1, di).to(u.dtype)
-    cache["conv"].copy_(window[:, 1:])
+    y = torch.einsum("bn,bhnp->bhp", cm, state) \
+        + D[heads][None, :, None] * xh
+    return y.reshape(b, 1, -1).to(zxbcdt.dtype), window[:, 1:], state
+
+
+def _ssm_decode(p, u, cfg: ArchConfig, cache):
+    """One-token recurrent step. u: (B, 1, D); ``cache`` in place."""
+    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
+    zxbcdt = base.matmul(xn, p.in_proj)
+    y, window, state = _ssm_step(zxbcdt, cache["conv"], cache["state"],
+                                 p.conv_w, p.conv_b, p.dt_bias, p.A_log,
+                                 p.D, cfg)
+    cache["conv"].copy_(window)
     cache["state"].copy_(state)
-    return _gated_out(p, y, z, u, cfg)
+    return _gated_out(p, y.to(u.dtype), zxbcdt[..., :cfg.d_inner], u, cfg)
+
+
+def _ssm_decode_mesh(p, u, cfg: ArchConfig, cache, mesh):
+    """:func:`_ssm_decode` on DTensors against a DTensor ``cache`` at
+    ``cache_specs``' placements: every rank convolves the whole window
+    (the conv cache gathered over the model axis), then steps its own
+    heads' state and writes its own channels and heads."""
+    xn = base.rms_norm(u, p.norm, cfg.norm_eps)
+    zxbcdt = constrain_act(base.matmul(xn, p.in_proj), mesh)
+    conv = cache["conv"]
+    conv_all = conv.redistribute(mesh, base.on_model(
+        conv.placements, mesh, Replicate()))
+    prm = _whole(mesh, base.gathered(p.conv_w), base.gathered(p.conv_b),
+                 p.dt_bias, p.A_log, p.D)
+    heads, model_pl = _mesh_heads(cfg, mesh)
+    channels = base.shard_slice(conv, 2)
+
+    def fn(zl, window, conv_l, state_l, *ps):
+        y, nxt, state = _ssm_step(zl, window, state_l, *ps, cfg, heads)
+        conv_l.copy_(nxt[..., channels])
+        state_l.copy_(state)
+        return y
+    y = base.local_map(fn, mesh, (zxbcdt, conv_all, conv, cache["state"],
+                                  *prm),
+                       base.on_model(zxbcdt.placements, mesh, model_pl))
+    y = constrain_act(y, mesh)
+    return _gated_out(p, y.to(u.dtype), zxbcdt[..., :cfg.d_inner], u, cfg,
+                      mesh=mesh)

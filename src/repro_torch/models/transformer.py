@@ -17,12 +17,17 @@ Modes:
   decode   -- one token per call against the caches (ring buffers for
               sliding-window layers), written in place
 
-Training also runs on a ``mesh`` (DTensor activations, batch-sharded
+Every mode also runs on a ``mesh`` (DTensor activations, batch-sharded
 over the data axes): the reference's ``constrain_act``,
 ``constrain_heads`` and ``constrain_kv`` become ``redistribute`` calls
 at its points, with its ``attn_fallback`` rules, and the attention runs
 on each rank's heads (:func:`attention_layout`), or its sequence slice
 (``flash_attention_context_parallel``, the reference's selection rule).
+Serving on a mesh keeps DTensor caches at ``launch.sharding``'s
+``cache_specs`` placements (:func:`cache_layout`): a prefill writes each
+rank's rows, kv heads, head_dim columns or sequence stretch, and a
+decode step reads them there (partial scores over "model" on a split
+head_dim; a log-sum-exp over "data" on a split sequence).
 
 Decode writes a row's key and value only where its slot lies inside the
 cache: a global layer's slot is ``pos`` itself, and a caller that keeps
@@ -242,10 +247,38 @@ def lm_cache_spec(cfg: ArchConfig, batch: int, s_cap: int) -> list:
             for kind in layer_kinds(cfg)]
 
 
-def init_cache(spec: list, device) -> list:
-    """Zeroed caches of a :func:`lm_cache_spec` on ``device``."""
-    return [{name: torch.zeros(s.shape, dtype=s.dtype, device=device)
-             for name, s in layer.items()} for layer in spec]
+def init_cache(spec: list, device, mesh=None) -> list:
+    """Zeroed caches of a :func:`lm_cache_spec` on ``device``; on a
+    ``mesh`` DTensors at ``launch.sharding.cache_specs``' placements."""
+    if mesh is None:
+        return [{name: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                 for name, s in layer.items()} for layer in spec]
+    from torch.distributed.tensor import zeros
+    from ..launch.sharding import cache_specs
+    specs = cache_specs(spec, mesh)
+    return [{name: zeros(s.shape, dtype=s.dtype, device_mesh=mesh,
+                         placements=base.placements(specs[i][name], mesh))
+             for name, s in layer.items()} for i, layer in enumerate(spec)]
+
+
+def cache_layout(cache, mesh):
+    """How a layer's DTensor KV cache is split, from its ``k``'s
+    placements: (the model-axis placement q, k and v take: ``Shard(2)``
+    with kv heads split, else ``Replicate()``; the head_dim columns this
+    rank holds, or ``None``; (first slot, capacity, group) of a sequence
+    split over the data axis, or ``None``)."""
+    k = cache["k"]
+    names = base.mesh_names(mesh)
+    heads_pl, cols, seq = Replicate(), None, None
+    for i, pl in enumerate(k.placements):
+        if pl.is_shard(2):
+            heads_pl = Shard(2)
+        elif pl.is_shard(3):
+            cols = base.shard_slice(k, 3)
+        elif pl.is_shard(1):
+            seq = (base.shard_slice(k, 1).start, k.shape[1],
+                   mesh.get_group(names[i]))
+    return heads_pl, cols, seq
 
 
 def _quant_kv(x):
@@ -256,54 +289,69 @@ def _quant_kv(x):
 
 # ------------------------------------------------------------------ layers
 
-def _decode_write(cache, kind, pos, k, v, int8: bool):
+def _new_entries(k, v, int8: bool, cols) -> dict:
+    """The cache entries of keys and values (..., KV, hd): int8 with
+    scales over the whole head_dim, then the ``cols`` a cache holds."""
+    if int8:
+        (qk, sk), (qv, sv) = _quant_kv(k), _quant_kv(v)
+        new = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    else:
+        new = {"k": k, "v": v}
+    if cols is not None:
+        new["k"], new["v"] = new["k"][..., cols], new["v"][..., cols]
+    return new
+
+
+def _decode_write(cache, kind, pos, k, v, int8: bool, s0: int = 0,
+                  cap: int | None = None, cols=None):
     """Write this step's key/value rows at their slots, in place; rows
-    whose slot lies past the cache are dropped.  Returns ``valid``."""
-    cap = cache["k"].shape[1]
-    ar = torch.arange(cap, device=pos.device)
+    whose slot lies past the cache are dropped.  Returns ``valid``.
+    A cache holding slots ``s0..`` of a ``cap``-slot sequence (a mesh's
+    sequence shard) writes and validates its own slots only."""
+    held = cache["k"].shape[1]
+    cap = cap or held
+    ar = s0 + torch.arange(held, device=pos.device)
     if kind == "local":
         slot = pos % cap
         valid = ar[None, :] < torch.clamp(pos + 1, max=cap)[:, None]
     else:
         slot = pos
         valid = ar[None, :] <= pos[:, None]
-    # an out-of-range row rewrites the value it finds at the last slot,
-    # so the write needs no host sync to pick its rows
-    inside = slot < cap
-    slot = torch.clamp(slot, max=cap - 1)
+    # an out-of-range row rewrites the value it finds at a held slot, so
+    # the write needs no host sync to pick its rows
+    inside = (slot >= s0) & (slot < s0 + held) & (slot < cap)
+    slot = torch.clamp(slot - s0, min=0, max=held - 1)
     rows = torch.arange(pos.shape[0], device=pos.device)
-    if int8:
-        qk, sk = _quant_kv(k[:, 0])
-        qv, sv = _quant_kv(v[:, 0])
-        new = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
-    else:
-        new = {"k": k[:, 0], "v": v[:, 0]}
+    new = _new_entries(k[:, 0], v[:, 0], int8, cols)
     for name, val in new.items():
         buf = cache[name]
         keep = inside.view((-1,) + (1,) * (val.dim() - 1))
-        buf[rows, slot] = torch.where(keep, val, buf[rows, slot])
+        buf[rows, slot] = torch.where(keep, val.to(buf.dtype),
+                                      buf[rows, slot])
     return valid
 
 
-def _prefill_write(cache, kind, k, v, int8: bool):
+def _prefill_write(cache, kind, k, v, int8: bool, s0: int = 0,
+                   cap: int | None = None, cols=None):
     """Write the prompt's keys/values into a fresh cache, in place: the
     first ``s`` slots, or for a ring shorter than the prompt its last
-    ``cap`` positions at ``position % cap``."""
+    ``cap`` positions at ``position % cap``.  A cache holding slots
+    ``s0..`` of a ``cap``-slot sequence writes its own slots only."""
     s = k.shape[1]
-    cap = cache["k"].shape[1]
-    if int8:
-        k_store, ks = _quant_kv(k)
-        v_store, vs = _quant_kv(v)
-        new = {"k": k_store, "v": v_store, "k_scale": ks, "v_scale": vs}
-    else:
-        new = {"k": k, "v": v}
+    held = cache["k"].shape[1]
+    cap = cap or held
+    new = _new_entries(k, v, int8, cols)
     if kind == "local" and s >= cap:
-        slots = torch.arange(s - cap, s, device=k.device) % cap
+        # slot j holds the one position of the last cap that is j mod cap
+        j = torch.arange(s0, s0 + held, device=k.device)
+        src = (s - cap) + (j - (s - cap)) % cap
         for name, val in new.items():
-            cache[name][:, slots] = val[:, s - cap:]
+            cache[name].copy_(val[:, src])
     else:
+        hi = min(s, s0 + held)
         for name, val in new.items():
-            cache[name][:, :s] = val
+            if hi > s0:
+                cache[name][:, :hi - s0] = val[:, s0:hi]
 
 
 def _mask_kind(kind, prefix_len, mask_override):
@@ -314,9 +362,10 @@ def _mask_kind(kind, prefix_len, mask_override):
 
 
 def _attn_mesh(p, x, xn, cfg: ArchConfig, kind: str, mesh, prefix_len,
-               mask_override):
-    """The training attention on DTensors, the reference's constrain
-    points in its order; returns ``x + attention(x)``."""
+               mask_override, train: bool = True, cache=None):
+    """The full-sequence attention on DTensors (training, or a prefill
+    that fills ``cache``), the reference's constrain points in its
+    order; returns ``x + attention(x)``."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     fb = cfg.attn_fallback
@@ -326,9 +375,9 @@ def _attn_mesh(p, x, xn, cfg: ArchConfig, kind: str, mesh, prefix_len,
         if n % m:       # a model-axis shard would cut a head
             t = constrain_act(t, mesh)
         return t.reshape(b, s, n, hd)
-    q = constrain_heads(heads(base.matmul(xn, p.wq), h), mesh, fb)
-    k = constrain_kv(heads(base.matmul(xn, p.wk), kv), mesh, fb)
-    v = constrain_kv(heads(base.matmul(xn, p.wv), kv), mesh, fb)
+    q = constrain_heads(heads(base.matmul(xn, p.wq, train), h), mesh, fb)
+    k = constrain_kv(heads(base.matmul(xn, p.wk, train), kv), mesh, fb)
+    v = constrain_kv(heads(base.matmul(xn, p.wv, train), kv), mesh, fb)
     if cfg.qk_norm:
         q = base.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = base.rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -339,6 +388,9 @@ def _attn_mesh(p, x, xn, cfg: ArchConfig, kind: str, mesh, prefix_len,
     q = constrain_heads(q, mesh, fb)            # the reference's re-pin
     k = constrain_kv(k, mesh, fb)
     mask_kind = _mask_kind(kind, prefix_len, mask_override)
+    if cache is not None:
+        _prefill_write_mesh(cache, kind, base.batch_placed(k, mesh, kv_pl),
+                            base.batch_placed(v, mesh, kv_pl), cfg, mesh)
     if use_context_parallel(cfg, mesh, s):
         o = flash_attention_context_parallel(
             q, k, v, mesh, mask_kind=mask_kind, window=cfg.window,
@@ -355,7 +407,74 @@ def _attn_mesh(p, x, xn, cfg: ArchConfig, kind: str, mesh, prefix_len,
         # too, or wo's model-sharded gradient would reach the reshape's
         # backward, which cannot split heads the axis does not divide
         o = constrain_act(o, mesh)
-    return constrain_act(x + base.matmul(o, p.wo), mesh)
+    return constrain_act(x + base.matmul(o, p.wo, train), mesh)
+
+
+def _prefill_write_mesh(cache, kind, k, v, cfg: ArchConfig, mesh):
+    """:func:`_prefill_write` of DTensor k, v (B, S, KV, hd) into a
+    DTensor cache, each rank its own rows, kv heads, head_dim columns
+    or sequence stretch."""
+    heads_pl, cols, seq = cache_layout(cache, mesh)
+    s0, cap, _ = seq or (0, None, None)
+    k, v = (t.redistribute(mesh, base.on_model(t.placements, mesh,
+                                               heads_pl)) for t in (k, v))
+    names = list(cache)
+
+    def write(kl, vl, *held):
+        _prefill_write(dict(zip(names, held)), kind, kl, vl,
+                       cfg.kv_cache_dtype == "int8", s0, cap, cols)
+    base.local_map(write, mesh, (k, v, *cache.values()))
+
+
+def _attn_decode_mesh(p, x, xn, cfg: ArchConfig, kind: str, mesh, pos,
+                      cache):
+    """One decode step on DTensors against a DTensor cache at
+    ``cache_specs``' placements: q, k and v on the cache's kv heads (or
+    whole over the model axis, a rank then taking its head_dim columns),
+    each rank writing and reading its own rows (or sequence stretch);
+    returns ``x + attention(x)``."""
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    int8 = cfg.kv_cache_dtype == "int8"
+    heads_pl, cols, seq = cache_layout(cache, mesh)
+    s0, cap, seq_group = seq or (0, None, None)
+    hd_group = None if cols is None else mesh.get_group("model")
+    theta = layer_theta(cfg, kind)
+
+    def heads(t, n):
+        if heads_pl != Shard(2) or n % base.axis_size(mesh, "model"):
+            t = constrain_act(t, mesh)
+        t = t.reshape(b, 1, n, hd)
+        want = base.on_model(t.placements, mesh, heads_pl)
+        return t if want == tuple(t.placements) else \
+            t.redistribute(mesh, want)
+    q = heads(base.matmul(xn, p.wq), h)
+    k = heads(base.matmul(xn, p.wk), kv)
+    v = heads(base.matmul(xn, p.wv), kv)
+    if cfg.qk_norm:
+        q = base.rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = base.rms_norm(k, p.k_norm, cfg.norm_eps)
+    names = list(cache)
+
+    def step(ql, kl, vl, pl, *held):
+        c = dict(zip(names, held))
+        ql = base.rope(ql, pl[:, None].to(torch.float32), theta)
+        kl = base.rope(kl, pl[:, None].to(torch.float32), theta)
+        valid = _decode_write(c, kind, pl, kl, vl, int8, s0, cap, cols)
+        if int8:
+            return decode_attention_int8(
+                ql, c["k"], c["k_scale"], c["v"], c["v_scale"], valid,
+                logit_cap=cfg.attn_logit_cap, hd_cols=cols,
+                hd_group=hd_group, seq_group=seq_group)
+        return decode_attention(
+            ql if cols is None else ql[..., cols], c["k"], c["v"], valid,
+            logit_cap=cfg.attn_logit_cap, head_dim=hd, hd_group=hd_group,
+            seq_group=seq_group)
+    o = base.local_map(step, mesh, (q, k, v, pos, *cache.values()),
+                       base.on_model(q.placements, mesh, heads_pl
+                                     if cols is None else Shard(3)))
+    o = constrain_act(o, mesh) if cols is not None else o
+    return x + base.matmul(o.reshape(b, 1, h * hd), p.wo)
 
 
 def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
@@ -364,19 +483,20 @@ def attn_apply(p, x, cfg: ArchConfig, kind: str, mode: str,
     """Returns ``x + attention(x)``; fills ``cache`` in place (keys are
     roped before caching).  A global layer takes the prefix-LM mask when
     ``prefix_len`` is set; ``mask_override`` replaces the mask kind.
-    A ``mesh`` (DTensor ``x``) is the training path's."""
+    On a ``mesh`` (DTensor ``x``; a DTensor ``cache`` at
+    ``cache_specs``' placements and ``pos`` at ``batch_spec``'s) every
+    mode runs on each rank's shards."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = layer_theta(cfg, kind)
     int8 = cfg.kv_cache_dtype == "int8"
     train = mode == "train"
     xn = base.rms_norm(x, p.norm, cfg.norm_eps)
+    if mesh is not None and mode == "decode":
+        return _attn_decode_mesh(p, x, xn, cfg, kind, mesh, pos, cache)
     if mesh is not None:
-        if not train:
-            raise ValueError("the mesh path trains; serving on a mesh is "
-                             "not ported")
         return _attn_mesh(p, x, xn, cfg, kind, mesh, prefix_len,
-                          mask_override)
+                          mask_override, train, cache)
     q = base.matmul(xn, p.wq, train).reshape(b, s, h, hd)
     k = base.matmul(xn, p.wk, train).reshape(b, s, kv, hd)
     v = base.matmul(xn, p.wv, train).reshape(b, s, kv, hd)
@@ -533,30 +653,36 @@ def lm_train_loss(model, batch, cfg: ArchConfig, embed_scale: bool = False,
     return ce
 
 
+def last_logits(model, x, cfg: ArchConfig, mesh=None):
+    """(B, V) logits of the last position of ``x`` (B, S, D); on a mesh
+    at the reference's output placements (batch over the data axes,
+    whole vocabulary)."""
+    x = base.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
+    logits = base.softcap(base.matmul(x, unembed_matrix(model, cfg)),
+                          cfg.final_logit_cap)[:, 0]
+    return constrain(logits, mesh, "batch", None)
+
+
 def lm_prefill(model, tokens, cfg: ArchConfig, s_cap=None,
-               embed_scale: bool = False, prefix_len=None):
-    """Returns (caches, last_token_logits)."""
+               embed_scale: bool = False, prefix_len=None, mesh=None):
+    """Returns (caches, last_token_logits); on a ``mesh`` (DTensor
+    ``tokens``) DTensor caches at ``cache_specs``' placements."""
     b, s = tokens.shape
     s_cap = s_cap or cfg.max_seq
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    caches = init_cache(lm_cache_spec(cfg, b, s_cap), tokens.device)
-    x = embed_tokens(model, tokens, cfg, embed_scale)
+    caches = init_cache(lm_cache_spec(cfg, b, s_cap), tokens.device, mesh)
+    x = embed_tokens(model, tokens, cfg, embed_scale, mesh)
     x, _ = stack_apply(model.layers, x, cfg, "prefill", caches=caches,
-                       positions=positions, prefix_len=prefix_len)
-    x = base.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
-    logits = base.softcap(base.matmul(x, unembed_matrix(model, cfg)),
-                          cfg.final_logit_cap)
-    return caches, logits[:, 0]
+                       positions=positions, prefix_len=prefix_len,
+                       mesh=mesh)
+    return caches, last_logits(model, x, cfg, mesh)
 
 
 def lm_decode_step(model, caches, token, pos, cfg: ArchConfig,
-                   embed_scale: bool = False):
+                   embed_scale: bool = False, mesh=None):
     """token: (B,) int, pos: (B,) int.  Returns (caches, logits (B, V));
     ``caches`` is updated in place and returned."""
-    x = embed_tokens(model, token[:, None], cfg, embed_scale)
+    x = embed_tokens(model, token[:, None], cfg, embed_scale, mesh)
     x, _ = stack_apply(model.layers, x, cfg, "decode", caches=caches,
-                       pos=pos)
-    x = base.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = base.softcap(base.matmul(x, unembed_matrix(model, cfg)),
-                          cfg.final_logit_cap)
-    return caches, logits[:, 0]
+                       pos=pos, mesh=mesh)
+    return caches, last_logits(model, x, cfg, mesh)

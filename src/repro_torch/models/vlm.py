@@ -70,24 +70,23 @@ def vlm_train_loss(model, batch, cfg: ArchConfig, mesh=None):
         mesh=mesh)
 
 
-def vlm_prefill(model, image_embeds, tokens, cfg: ArchConfig, s_cap=None):
+def vlm_prefill(model, image_embeds, tokens, cfg: ArchConfig, s_cap=None,
+                mesh=None):
     """image_embeds (B, n_vis_tokens, d_vis), tokens (B, St) -> (caches,
-    last_token_logits)."""
+    last_token_logits); on a ``mesh`` both are DTensors."""
     b, st = tokens.shape
     nv = cfg.n_vis_tokens
     s = nv + st
     s_cap = s_cap or cfg.max_seq
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    caches = tfm.init_cache(tfm.lm_cache_spec(cfg, b, s_cap), tokens.device)
-    x = _embed_multimodal(model, image_embeds, tokens, cfg)
+    caches = tfm.init_cache(tfm.lm_cache_spec(cfg, b, s_cap), tokens.device,
+                            mesh)
+    x = _embed_multimodal(model, image_embeds, tokens, cfg, mesh=mesh)
     x, _ = tfm.stack_apply(model.layers, x, cfg, "prefill", caches=caches,
-                           positions=positions, prefix_len=nv)
-    x = base.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
-    logits = base.softcap(base.matmul(x, tfm.unembed_matrix(model, cfg)),
-                          cfg.final_logit_cap)
-    return caches, logits[:, 0]
+                           positions=positions, prefix_len=nv, mesh=mesh)
+    return caches, tfm.last_logits(model, x, cfg, mesh)
 
 
-def vlm_decode_step(model, caches, token, pos, cfg: ArchConfig):
+def vlm_decode_step(model, caches, token, pos, cfg: ArchConfig, mesh=None):
     return tfm.lm_decode_step(model, caches, token, pos, cfg,
-                              embed_scale=True)
+                              embed_scale=True, mesh=mesh)

@@ -26,6 +26,7 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
@@ -141,8 +142,11 @@ class StepConstants:
 
     def on(self, device: torch.device) -> tuple:
         if device not in self.by_device:
-            t = self.host if device.type == "cpu" else \
-                self.host.pin_memory().to(device, non_blocking=True)
+            t = self.host
+            if device.type != "cpu":      # fake tensors (the dry run)
+                if not is_fake(t):        # have no pages to pin
+                    t = t.pin_memory()
+                t = t.to(device, non_blocking=True)
             self.by_device[device] = t.unbind()
         return self.by_device[device]
 

@@ -133,7 +133,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None,
 
     With a ``mesh`` the model is distributed on it here unless it
     already is (``opt_state`` must be made after, from its parameters);
-    the batch is a ``device_batch(..., mesh=mesh)``."""
+    the batch is a ``device_batch(..., mesh=mesh)``.
+
+    ``step.gradients(batch)`` is the step's device work alone (loss,
+    gradients, squared norm); ``step`` adds the one host sync, the
+    non-finite guard and the AdamW update."""
     if mesh is not None and model.mesh is None:
         model.distribute_(mesh)
     model.requires_grad_(True)
@@ -148,7 +152,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None,
                                                      grads))).values())
         return loss.detach(), grads
 
-    def step_fn(opt_state: dict, batch: dict) -> dict:
+    def gradients(batch: dict) -> tuple:
+        """The step's device work before the update: (loss, gradients in
+        parameter order, their float32 squared norm), no host sync (the
+        dry run traces it, then ``optim.apply_updates``)."""
         if microbatches == 1:
             loss, grads = value_and_grad(batch)
         else:
@@ -163,8 +170,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None,
                      for i in range(microbatches)]
             grads = _accumulate([g for _, g in pairs], exact_accum, mesh)
             loss = _div(sum(l for l, _ in pairs), microbatches)
+        return loss, grads, sum(sq_norms(dict(zip(names, grads))))
 
-        gnorm_sq = sum(sq_norms(dict(zip(names, grads))))
+    def step_fn(opt_state: dict, batch: dict) -> dict:
+        loss, grads, gnorm_sq = gradients(batch)
         loss_v, gsq = torch.stack([loss.to(torch.float32),
                                    gnorm_sq]).tolist()    # the one sync
         finite = math.isfinite(loss_v) and math.isfinite(gsq)
@@ -177,6 +186,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, mesh=None,
         return {"loss": loss_v, "finite": finite,
                 "grad_norm": math.sqrt(gsq), "lr": float(lr)}
 
+    step_fn.gradients = gradients
     return step_fn
 
 

@@ -2,8 +2,8 @@
 
 ``src/repro_torch/**.py``, ``chip_smoke.py``,
 ``scripts/row_tiles_bench.py``, ``scripts/decode_drift.py``,
-``scripts/train_aten_calls.py`` and ``scripts/gloo_cuda_probe.py`` (all
-run on a machine without jax) may
+``scripts/train_aten_calls.py``, ``scripts/gloo_cuda_probe.py`` and
+``scripts/profiler_probe.py`` (all run on a machine without jax) may
 import torch, numpy, the standard library, ``repro_torch`` and
 ``chip_smoke`` -- never ``jax`` or ``repro``.
 """
@@ -31,7 +31,8 @@ def test_no_jax_or_reference_imports_in_the_port():
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "row_tiles_bench.py",
               ROOT / "scripts" / "decode_drift.py",
               ROOT / "scripts" / "train_aten_calls.py",
-              ROOT / "scripts" / "gloo_cuda_probe.py"]
+              ROOT / "scripts" / "gloo_cuda_probe.py",
+              ROOT / "scripts" / "profiler_probe.py"]
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for sub in ("core", "core/bank", "designs", "kernels/bank_fold",
