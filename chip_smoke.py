@@ -223,6 +223,21 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    per-instance rounds, in (d)'s process: after phase 10's profiled
    steps torch 2.11's profiler may record no device events in this one.
    No kernel of phases 2-7 lies on (a)-(d).
+13. The plan-time gate on the card.  (a) ``python -m repro_torch.verify
+   --smoke --device cuda`` in a subprocess exits 0, and its ``kernels``
+   section holds every launch contract of its ``dataflow`` section to
+   the built kernels: the launcher's ``*_launch_shape`` equals the
+   declared grid, threads and dynamic shared memory, no spill bytes.
+   (b) ``verify.contracts.check_bank_static`` on fake CUDA tensors for
+   the kernel and fused backends of every registry design (the custom
+   ops' fake versions; no launch).  (c) ``generate(name)`` of the 13
+   designs, cold (the gate's caches cleared) and cached, ms a design,
+   and the dataflow gate alone.  (d) One bad window in
+   ``super_geometry``'s table: ``generate`` raises ``DataflowError`` and
+   no kernel launches.  (e) Phase 4's rounds at B = 1,048,576 on the
+   custom ops, beside their figures before, and the custom op's host cost a
+   call against the raw launch it wraps.
+   Phase 2's bounds are the gate's roofline of each launch's contract.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -250,16 +265,17 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+# H100 SXM peaks and the limb kernels' operation counts: the port's own
+# (repro_torch/kernels/introspect.py), which the plan-time gate's
+# roofline (verify/dataflow.py) uses too
+from repro_torch.kernels.introspect import (  # noqa: E402
+    HBM_BYTES_PER_S, ops_per_row)
+from repro_torch.kernels.introspect import bound_ms as bound  # noqa: E402
+
 SEED = 20230131
 B_MAIN = 65_536          # operand pairs per design on the main path
 B_TIME = 1_048_576       # operand pairs of a timed round
 ORACLE_ROWS = 1_024
-# H100 SXM peaks (NVIDIA data sheet; CUDA C Programming Guide throughput
-# table for compute capability 9.0: 64 int32 add/logic/shift/IMAD results
-# per clock per SM, 132 SMs, 1.98 GHz boost clock)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-INT8_TC_OPS_PER_S = 1.979e15       # dense int8 tensor-core peak
 # gemma2-9b MLP up-projection (d_model 3584, d_ff 14336)
 GEMMA_K, GEMMA_N = 3584, 14336
 GEMMA_M = (2048, 64)               # a prefill chunk, a decode batch
@@ -429,60 +445,6 @@ def packed(x):
     return x[:, 0] | (x[:, 1] << 16) if x.shape[1] > 1 else x[:, 0]
 
 
-# ------------------------------------------------------ operation counts
-
-def ops_per_row(kernel, la, lb, windows=None, ct_run=1, chunk=1):
-    """Integer operations one row needs: 5 per 16x16 limb product (mul,
-    mask, shift, two adds) and 3 per carry-propagated column.  For the
-    prefix adder ``la`` is the row's column count."""
-    if kernel == "prefix_adder":
-        rounds = (la - 1).bit_length()             # ceil(log2 W)
-        # split and fold 4, (g, p, base) 4, 4 a round, carry-in and store 3
-        return la * (11 + 4 * rounds)
-    if kernel == "karatsuba_ppm":               # the reference's count
-        h, hp = la // 2, la // 2 + 1
-        return (2 * (h + 3 * hp)                   # A0+A1, B0+B1 and 1CA
-                + 5 * (2 * h * h + hp * hp)        # three PPM passes
-                + 3 * (4 * h + 2 * hp)             # their carry passes
-                + 4 * 2 * la + 1                   # placement, complements
-                + 3 * 2 * la)                      # final adder
-    if kernel == "bank_fold":
-        width = sum(hi - lo for lo, hi in windows)
-        return 5 * la * width + 3 * (la + lb)
-    if kernel == "mcim_fold_fb":
-        return 5 * la * lb + 3 * ct_run * (la + chunk + 1)
-    if kernel == "mcim_fold_ff":
-        return 5 * la * lb + 3 * (la + lb)
-    n = max(la, lb) + max(la, lb) % 2
-    h, hp = n // 2, n // 2 + 1
-    return (2 * 4 * h                          # A0+A1, B0+B1
-            + 3 * (5 * hp * hp + 3 * 2 * hp)   # three PPM passes + 1CA
-            + 3 * 2 * hp + 2 * (2 * 2 * n + 1)  # placements, NOT+1 terms
-            + 3 * (la + lb))                   # final adder
-
-
-def kara_row_ops(n):
-    """Integer operations a row of N limbs of either Karatsuba kernel
-    issues (``csrc/kara_rows.cuh`` ``KaraRows``): 2 a limb
-    product of T0, T1 and T2 (one wide multiply-add, a 64-bit result), 4
-    a 64-bit column carried (add with carry out and in, mask, shift), 4
-    a limb of the two half sums (two adds, mask, shift), 2 a placed limb
-    of T0 and of T1 (add and subtract), 1 of T2, and 3 a column of the
-    final carry pass."""
-    h, hp = n // 2, n // 2 + 1
-    return (2 * (2 * h * h + hp * hp)
-            + 4 * (2 * (2 * h - 1) + 2 * hp - 1)
-            + 4 * 2 * h
-            + 2 * 2 * 2 * h + min(2 * hp, 2 * n - h)
-            + 3 * 2 * n)
-
-
-def bound(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # ----------------------------------------------------------------- phases
 
 def phase_card():
@@ -604,17 +566,26 @@ def compare(got, want):
 
 
 def kernel_entry(name, route_name, source, replaces, kernel_fn, plain_fn,
-                 args, n_ops, library=None, ops_per_s=INT32_OPS_PER_S):
+                 args, contract, library=None):
     """Check a kernel against its plain version on the same inputs and
-    time both (and the library call, if any).  The bound counts each
-    argument read once and the output written once, at their element
-    sizes."""
+    time both (and the library call, if any).  The bound is the
+    plan-time gate's roofline of the launch's contract
+    (``verify.dataflow.analyze_contract``): each operand read once and
+    the output written once, the kernel's integer operations; the
+    contract must prove clean and declare these inputs' shapes."""
+    from repro_torch.verify import dataflow
     got = kernel_fn(*args)
     want = plain_fn(*args)
     torch.cuda.synchronize()
     err, same = compare(got, want)
     check(same, f"{name}: kernel disagrees with its plain version (max "
           f"abs err {err})")
+    report = dataflow.analyze_contract(contract)
+    check(report.ok, f"{name}: {[v.describe() for v in report.violations]}")
+    declared = [tuple(op.shape) for op in contract.operands.values()]
+    check(declared[:len(args)] == [tuple(t.shape) for t in args]
+          and tuple(contract.outputs["out"].shape) == tuple(got.shape),
+          f"{name}: contract {contract.name} declares {declared}")
     loop_ms = cuda_ms(lambda: kernel_fn(*args), iters=20)
     ms = graph_ms(lambda: kernel_fn(*args))
     plain_ms = cuda_ms(lambda: plain_fn(*args), iters=3, warmup=1)
@@ -622,16 +593,17 @@ def kernel_entry(name, route_name, source, replaces, kernel_fn, plain_fn,
     if library is not None:
         lib_loop_ms = cuda_ms(library, iters=20)
         lib_ms = graph_ms(library)
-    n_bytes = sum(t.numel() * t.element_size() for t in (*args, got))
-    bound_ms, bound_by = bound(n_bytes, n_ops, ops_per_s)
+    n_bytes, n_ops = report.hbm_bytes, report.flops
+    bound_ms, bound_by = report.bound_ms, report.bound_by
     shapes = " x ".join(f"{tuple(t.shape)} {str(t.dtype)[6:]}"
                         for t in args)
     lib = ("none" if lib_ms is None else
            f"{lib_ms:.4f} ms [loop {lib_loop_ms:.4f}]")
     print(f"  {name}: {shapes}  kernel {ms:.4f} ms [loop {loop_ms:.4f}]  "
           f"plain {plain_ms:.4f} ms  library {lib}  bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B, {n_ops} ops)  "
-          f"max_abs_err {err}")
+          f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B, {n_ops} ops; "
+          f"{contract.name} {contract.path}, grid {tuple(contract.grid)})"
+          f"  max_abs_err {err}")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "counter": route_name, "launches": None,
             "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
@@ -706,6 +678,7 @@ def footprint(device, rng):
 def phase_kernels(device):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch import designs
+    from repro_torch.verify import dataflow
     from repro_torch.kernels import bank_fold as BF
     from repro_torch.kernels import mcim_fold as MF
     print(f"phase 2: kernels vs plain versions, rows of a B={B_TIME} round")
@@ -720,9 +693,9 @@ def phase_kernels(device):
         check(d.bank.backend == "fused", f"{design_name}: auto is not fused")
         table = torch.from_numpy(sg.table()).to(device)
         a, b = operands(rng, (sg.n_instances, rows), d.spec.bits_a, device)
-        ops = rows * sum(ops_per_row("bank_fold", d.la, d.lb,
-                                     sg.windows(i))
-                         for i in range(sg.n_instances))
+        contract = dataflow.round_contract(d.spec.bits_a, d.spec.bits_b,
+                                           d.plan.configs, B_TIME,
+                                           d.spec.scheduler)
         lib = pa = pb = None
         if d.spec.bits_a <= 32:
             pa, pb = packed(a), packed(b)
@@ -731,8 +704,8 @@ def phase_kernels(device):
             "bank_fold" if design_name == "tp3p5_w32"
             else f"bank_fold/{design_name}", "bank_fold", src_bank,
             "src/repro/kernels/bank_fold/kernel.py:44",
-            BF.fused_bank_mul, BF.fused_bank_mul_ref, (a, b, table), ops,
-            library=lib)
+            BF.fused_bank_mul, BF.fused_bank_mul_ref, (a, b, table),
+            contract, library=lib)
         other_path(entry, BF.fused_bank_mul_kernel, BF.fused_bank_mul_ref,
                    (a, b, table), BF.launch_plan(
                        sg.n_instances, rows, d.la, d.lb, True))
@@ -769,16 +742,15 @@ def phase_kernels(device):
                 x, y, ct=ct, schedule=s)
             plain = lambda x, y, ct=ct, s=sched: MF.mcim_fold_mul_ref(  # noqa
                 x, y, ct=ct, schedule=s)
-            ops = ref_ops = n * ops_per_row(key, d.la, d.lb,
-                                            ct_run=geo.ct_run,
-                                            chunk=geo.chunk)
-            if sched == "karatsuba":
-                # what its body issues (KaraRows on rows of an even N);
-                # the reference's count is the yardstick, as for #6
-                ops = n * kara_row_ops(geo.scratch_width // 2)
+            # the karatsuba contract counts what its body issues
+            # (KaraRows on rows of an even N); the reference's count is
+            # the yardstick, as for #6
+            ref_ops = n * ops_per_row(key, d.la, d.lb, ct_run=geo.ct_run,
+                                      chunk=geo.chunk)
             entry = kernel_entry(
                 label, key, src_fold, f"{ref_fold}:{line}", run, plain,
-                (fa, fb_), ops, library=lib)
+                (fa, fb_), MF.launch_contract(d.la, d.lb, ct, sched,
+                                              batch=n), library=lib)
             if sched == "karatsuba":
                 add_cold(entry, run, (fa, fb_), yardstick=(
                     "the reference's operation count", bound(0, ref_ops)[0]))
@@ -801,7 +773,8 @@ def phase_kernels(device):
         "mcim_fold_ff", "mcim_fold_ff", src_fold, f"{ref_fold}:146",
         lambda x, y: MF.mcim_fold_mul(x, y, ct=cfg.ct, schedule="ff"),
         lambda x, y: MF.mcim_fold_mul_ref(x, y, ct=cfg.ct, schedule="ff"),
-        (fa, fb_), B_TIME * ops_per_row("mcim_fold_ff", d.la, d.lb),
+        (fa, fb_), MF.launch_contract(d.la, d.lb, cfg.ct, "ff",
+                                      batch=B_TIME),
         library=lambda: pa * pb)
     other_path(entry, lambda x, y, path: MF.mcim_fold_kernel(
                    x, y, schedule="ff", path=path),
@@ -843,7 +816,7 @@ def slice2_entries(device, rng):
             "src/repro_torch/csrc/prefix_adder.cu",
             "src/repro/kernels/prefix_adder/kernel.py:29",
             PA.prefix_final_adder, PA.prefix_final_adder_ref, (cols,),
-            B_TIME * ops_per_row("prefix_adder", cols.shape[1], 0)))
+            PA.launch_contract(cols.shape[1], B_TIME)))
         del cols
         n = a.shape[1]
         entry = kernel_entry(
@@ -851,7 +824,7 @@ def slice2_entries(device, rng):
             "src/repro_torch/csrc/karatsuba_ppm.cu",
             "src/repro/kernels/karatsuba_ppm/kernel.py:46",
             KP.karatsuba_ppm_mul, KP.karatsuba_ppm_mul_ref, (a, b),
-            B_TIME * kara_row_ops(n))
+            KP.launch_contract(n, B_TIME))
         other_path(entry, KP.karatsuba_ppm_kernel, KP.karatsuba_ppm_mul_ref,
                    (a, b), KP.launch_plan(B_TIME, n, True))
         add_cold(entry, KP.karatsuba_ppm_mul, (a, b), yardstick=(
@@ -872,9 +845,8 @@ def slice2_entries(device, rng):
             "int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
             "src/repro/kernels/int8_matmul/kernel.py:24",
             IM.int8_matmul, IM.int8_matmul_ref, args,
-            2 * m * GEMMA_K * GEMMA_N,
-            library=lambda qx=qx: torch._int_mm(qx, qw_cm),
-            ops_per_s=INT8_TC_OPS_PER_S)
+            IM.launch_contract(m, GEMMA_K, GEMMA_N),
+            library=lambda qx=qx: torch._int_mm(qx, qw_cm))
         # the same inputs through the mma.sync kernel, on the same card
         entry["path"] = IM.kernel_path(m, GEMMA_K, GEMMA_N)
         check(entry["path"] != "mma_sync", f"M={m}: no wgmma path")
@@ -3563,6 +3535,209 @@ def report_dryrun(d, elapsed, smi):
           f"12a-c")
 
 
+# ----------------------------------------------------------------- phase 13
+
+#: phase 13e: the fused rounds at B = 1,048,576 before the launches
+#: became custom ops (mul round ms, CUDA events; PERF.md section 5)
+BEFORE_OPS_ROUND_MS = {"tp3p5_w32": 508.8, "tp5over6_w128": 822.0}
+GATE_LIMIT_S = 300
+
+
+def gate_cli(smi):
+    """13a: ``python -m repro_torch.verify --smoke --device cuda`` in a
+    subprocess; exit 0, its ``kernels`` section clean."""
+    out = ROOT / "build" / "chip_smoke" / "VERIFY_torch_report.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.verify", "--smoke", "--device",
+         "cuda", "--out", str(out)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=GATE_LIMIT_S)
+    elapsed = time.perf_counter() - t0
+    print("\n".join(f"    {line}" for line in proc.stdout.splitlines()))
+    check(proc.returncode == 0, f"13a: verify exited {proc.returncode}:\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(out.read_text())
+    kernels = report["kernels"]
+    check(kernels and all(k["ok"] for k in kernels)
+          and report["summary"]["ok"], "13a: a contract fails on the card")
+    for k in kernels:
+        check(k["card"] == k["declared"] and k["local_bytes"] == 0,
+              f"13a: {k}")
+    regs = {}
+    for k in kernels:
+        regs.setdefault((k["kernel"], k["path"]), set()).add(k["registers"])
+    print(f"  13a verify --device cuda: exit 0 in {elapsed:.1f} s, "
+          f"{len(kernels)} launch contracts = their *_launch_shape on "
+          f"{smi}, 0 spill bytes; registers by launcher: " + ", ".join(
+              f"{name} {path} {sorted(r)}"
+              for (name, path), r in sorted(regs.items())))
+    return report
+
+
+def gate_bank_fake(device):
+    """13b: ``check_bank_static`` on fake CUDA tensors, every registry
+    design, the kernel and fused backends: no launch."""
+    from repro_torch import designs
+    from repro_torch.kernels import launch_counts
+    from repro_torch.verify import contracts
+    before = sum(launch_counts().values())
+    t0 = time.perf_counter()
+    checked = 0
+    for name in designs.names():
+        d = designs.generate(name)
+        for backend in ("kernel", "fused"):
+            if backend == "kernel" and d.spec.signed:
+                continue          # the kernel capability is unsigned-only
+            vs = contracts.check_bank_static(
+                d.plan, d.spec.bits_a, d.spec.bits_b, backend=backend,
+                batch=B_MAIN, device=device)
+            check(not vs, f"13b {name} {backend}: "
+                  f"{[v.describe() for v in vs]}")
+            checked += 1
+    check(sum(launch_counts().values()) == before,
+          "13b: the fake-tensor dispatch launched a kernel")
+    print(f"  13b check_bank_static on fake {device} tensors: {checked} "
+          f"dispatches (13 designs x kernel, fused) at B={B_MAIN} clean, "
+          f"0 launches, {time.perf_counter() - t0:.2f} s")
+
+
+def gate_generate_ms():
+    """13c: ``generate(name)`` on the card, cold (every cache of the
+    gate cleared) and cached, ms a design; the dataflow gate alone."""
+    from repro_torch import designs, verify
+    from repro_torch.verify import dataflow
+
+    def cold():
+        verify.verify_instance.cache_clear()
+        dataflow.clear_caches()
+    rows = []
+    for name in designs.names():
+        cold()
+        t0 = time.perf_counter()
+        d = designs.generate(name)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        dataflow.clear_caches()
+        t0 = time.perf_counter()
+        verify.assert_plan_dataflow(d.spec.bits_a, d.spec.bits_b,
+                                    d.plan.configs)
+        gate_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        designs.generate(name)
+        cached_ms = (time.perf_counter() - t0) * 1e3
+        rows.append((name, cold_ms, gate_ms, cached_ms))
+    for name, cold_ms, gate_ms, cached_ms in rows:
+        print(f"    {name}: generate cold {cold_ms:.2f} ms (dataflow gate "
+              f"{gate_ms:.2f} ms), cached {cached_ms:.2f} ms")
+    print("  13c generate on the card, ms a design: cold median "
+          f"{statistics.median(r[1] for r in rows):.2f}, dataflow gate "
+          f"median {statistics.median(r[2] for r in rows):.2f} (max "
+          f"{max(r[2] for r in rows):.2f}), cached median "
+          f"{statistics.median(r[3] for r in rows):.2f}")
+
+
+def gate_refuses_bad_table():
+    """13d: one bad window in ``super_geometry``'s table (instance 0's
+    first window one limb past LB, the windows and the table it is built
+    from agreeing, so ``assert_plan``'s consistency checks pass):
+    ``generate`` raises ``DataflowError`` and no kernel launches."""
+    from repro_torch import designs, verify
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.bank_fold import geometry
+    from repro_torch.verify import dataflow
+    real = geometry.SuperGeometry.windows
+
+    def bad(self, i):
+        wins = real(self, i)
+        return ((wins[0][0], self.lb + 1),) + wins[1:] if i == 0 else wins
+    reset_launch_counts()
+    geometry.SuperGeometry.windows = bad
+    dataflow.clear_caches()
+    try:
+        designs.generate("tp3p5_w32")
+        raised = None
+    except verify.DataflowError as e:
+        raised = e
+    finally:
+        geometry.SuperGeometry.windows = real
+        dataflow.clear_caches()
+    check(raised is not None, "13d: generate accepted a bad window")
+    rules = sorted({v.rule for v in raised.violations})
+    check("window-bounds" in rules, f"13d: rules {rules}")
+    launched = sum(launch_counts().values())
+    check(launched == 0, f"13d: {launched} launches")
+    print(f"  13d bad window: generate raised DataflowError ({rules}), "
+          f"{launched} launches")
+
+
+def gate_round_host(device, rounds):
+    """13e: phase 4's round at B = 1,048,576 on the custom ops: the mul
+    round, its host report and dispatch enqueue, and the custom op's own
+    host cost a call against the raw launch it wraps."""
+    from repro_torch import designs
+    from repro_torch.kernels import _build, _row_tiles
+    from repro_torch.kernels import bank_fold as BF
+    rng = np.random.default_rng(SEED + 13)
+    for name in rounds:
+        d = designs.generate(name)
+        a, b = operands(rng, (B_TIME,), d.spec.bits_a, device)
+        round_ms = cuda_ms(lambda: d.mul(a, b), iters=5)
+        t0 = time.perf_counter()
+        d.bank.report(B_TIME)
+        report_ms = (time.perf_counter() - t0) * 1e3
+        run = d.bank.dispatch_fn(B_TIME)
+        enqueue = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(a, b)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        print(f"  13e round {name} B={B_TIME}: mul round {round_ms:.4f} ms"
+              f" (before custom ops: {BEFORE_OPS_ROUND_MS[name]} ms), "
+              f"host report "
+              f"{report_ms:.4f} ms, dispatch enqueue (host) "
+              f"{statistics.median(enqueue):.4f} ms")
+    # the op against the raw launch, one small fused round (2 x 256 rows)
+    a, b = operands(rng, (2, 256), 32, device)
+    table = torch.tensor([[[0, 2]], [[0, 2]]], dtype=torch.int32,
+                         device=device)
+    out = torch.empty((2, 256, 4), dtype=torch.int32, device=device)
+    path = BF.launch_plan(2, 256, 2, 2, _row_tiles.is_aligned(a, b))
+    fn = _build.launcher("bank_fold", "bank_fold_bulk_launch"
+                         if path == "bulk" else "bank_fold_launch", 4, 5)
+
+    def host_us(call, n=300):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        per = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return per
+    op_us = host_us(lambda: BF.fused_bank_mul(a, b, table))
+    raw_us = host_us(lambda: _build.launch(
+        "bank_fold", fn, (a, b, table, out), (2, 256, 2, 2, 1), path=path))
+    print(f"  13e host a call: fused_bank_mul through the custom op "
+          f"{op_us:.1f} us, the raw launch {raw_us:.1f} us "
+          f"(op dispatch, checks and output allocation "
+          f"{op_us - raw_us:.1f} us)")
+
+
+def phase_gate(device, smi, rounds):
+    """Phase 13: the plan-time gate on the card."""
+    t0 = time.perf_counter()
+    print(f"phase 13: the gate on the card [{smi}]")
+    gate_cli(smi)
+    gate_bank_fake(device)
+    gate_generate_ms()
+    gate_refuses_bad_table()
+    gate_round_host(device, rounds)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3584,6 +3759,7 @@ def main():
     phase_training(device, smi)
     phase_mesh(smi)
     phase_serve_mesh(smi)
+    phase_gate(device, smi, rounds)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

@@ -127,26 +127,26 @@ __global__ void __launch_bounds__(tiles::kTileRows)
                               BankFold{table, max_steps});
 }
 
+// The bulk launch at L limbs (tiles::bulk_launch_shape).
+template <int L>
+cudaError_t bulk_launch_at(int n_inst, int rows, int* info) {
+  return tiles::bulk_launch_shape<L>(bank_fold_bulk_kernel<L>, n_inst, rows,
+                                     info);
+}
+
 template <int L>
 cudaError_t launch_bulk(const uint32_t* a, const uint32_t* b,
                         const int32_t* table, uint32_t* out, int n_inst,
                         int rows, int max_steps, cudaStream_t stream) {
-  using B = tiles::Bulk<L>;
-  const long long total =
-      (long long)n_inst * ((rows + B::kTileRows - 1) / B::kTileRows);
-  if (total >= (1LL << 31) || (long long)rows * L % 4 ||
-      !tiles::aligned16(a) || !tiles::aligned16(b) ||
+  if (!tiles::aligned16(a) || !tiles::aligned16(b) ||
       !tiles::aligned16(out)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = bank_fold_bulk_kernel<L>;
-  int blocks = 0;
-  cudaError_t err = tiles::resident_blocks(kernel, B::kThreads, B::kBytes,
-                                           B::kPerSm, &blocks);
+  int info[4];
+  const cudaError_t err = bulk_launch_at<L>(n_inst, rows, info);
   if (err != cudaSuccess) return err;
-  const int grid = (int)(total < blocks ? total : blocks);
-  kernel<<<grid, B::kThreads, B::kBytes, stream>>>(a, b, table, out, n_inst,
-                                                   rows, max_steps);
+  bank_fold_bulk_kernel<L><<<info[0], info[2], info[3], stream>>>(
+      a, b, table, out, n_inst, rows, max_steps);
   return cudaGetLastError();
 }
 
@@ -155,11 +155,11 @@ cudaError_t launch(const uint32_t* a, const uint32_t* b,
                    const int32_t* table, uint32_t* out, int n_inst,
                    int rows, int la, int lb, int max_steps,
                    cudaStream_t stream) {
-  const int T = tiles::kTileRows;  // at most 16,896 B: no attribute needed
-  const size_t smem = MAXL == 2 ? 0 : (size_t)T * tiles::pitch(la + lb) * 4;
-  const dim3 grid((rows + T - 1) / T, n_inst);
-  bank_fold_kernel<MAXL><<<grid, T, smem, stream>>>(a, b, table, out, rows,
-                                                    la, lb, max_steps);
+  int info[4];
+  tiles::tile_launch_shape(MAXL, n_inst, rows, la, lb, info);
+  bank_fold_kernel<MAXL><<<dim3(info[0], info[1]), info[2], info[3],
+                           stream>>>(a, b, table, out, rows, la, lb,
+                                     max_steps);
   return cudaGetLastError();
 }
 
@@ -211,6 +211,53 @@ extern "C" int bank_fold_bulk_shape(int la, int* info) {
     case 4: return tiles::bulk_shape<4>(bank_fold_bulk_kernel<4>, info);
     case 8: return tiles::bulk_shape<8>(bank_fold_bulk_kernel<8>, info);
     case 16: return tiles::bulk_shape<16>(bank_fold_bulk_kernel<16>, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The launch each entry above makes for these arguments, and the
+// attributes of the kernel it launches: info = {grid.x, grid.y, threads,
+// dynamic shared bytes} and {registers, local bytes, static shared
+// bytes, most threads a block} (the launch contracts of
+// kernels/bank_fold/ops.py are held to them).
+extern "C" int bank_fold_launch_shape(int n_inst, int rows, int la, int lb,
+                                      int max_steps, int* info) {
+  tiles::tile_launch_shape(limbs::bucket(la, lb), n_inst, rows, la, lb,
+                           info);
+  return cudaSuccess;
+}
+
+extern "C" int bank_fold_attributes(int n_inst, int rows, int la, int lb,
+                                    int max_steps, int* info) {
+  switch (limbs::bucket(la, lb)) {
+    case 2: return tiles::attributes(bank_fold_kernel<2>, info);
+    case 4: return tiles::attributes(bank_fold_kernel<4>, info);
+    case 8: return tiles::attributes(bank_fold_kernel<8>, info);
+    default: return tiles::attributes(bank_fold_kernel<16>, info);
+  }
+}
+
+extern "C" int bank_fold_bulk_launch_shape(int n_inst, int rows, int la,
+                                           int lb, int max_steps,
+                                           int* info) {
+  if (la != lb) return cudaErrorInvalidValue;
+  switch (la) {
+    case 2: return bulk_launch_at<2>(n_inst, rows, info);
+    case 4: return bulk_launch_at<4>(n_inst, rows, info);
+    case 8: return bulk_launch_at<8>(n_inst, rows, info);
+    case 16: return bulk_launch_at<16>(n_inst, rows, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int bank_fold_bulk_attributes(int n_inst, int rows, int la,
+                                         int lb, int max_steps, int* info) {
+  if (la != lb) return cudaErrorInvalidValue;
+  switch (la) {
+    case 2: return tiles::attributes(bank_fold_bulk_kernel<2>, info);
+    case 4: return tiles::attributes(bank_fold_bulk_kernel<4>, info);
+    case 8: return tiles::attributes(bank_fold_bulk_kernel<8>, info);
+    case 16: return tiles::attributes(bank_fold_bulk_kernel<16>, info);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -244,15 +244,25 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+// The mma.sync launch: one block a 128 x 128 output tile, its shared
+// tiles static (info = {grid.x, grid.y, threads, dynamic shared bytes}).
+inline void mma_sync_shape(int m, int n, int* info) {
+  info[0] = (m + kBM - 1) / kBM;
+  info[1] = (n + kBN - 1) / kBN;
+  info[2] = kThreads;
+  info[3] = 0;
+}
+
 template <typename OutT>
 cudaError_t launch_mma_sync(const void* x, const void* w, const void* sx,
                             const void* sw, void* out, int m, int k, int n,
                             void* stream) {
-  const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
+  int info[4];
+  mma_sync_shape(m, n, info);
   // 4-byte loads need rows that start on 4-byte boundaries
   const bool vec_x = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
   const bool vec_w = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
-  int8_matmul_kernel<OutT><<<grid, kThreads, 0,
+  int8_matmul_kernel<OutT><<<dim3(info[0], info[1]), info[2], info[3],
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(sx), static_cast<const float*>(sw),
@@ -659,14 +669,28 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The wgmma launch of Cfg's tiles: info = {grid.x, grid.y, threads,
+// dynamic shared bytes}; cudaErrorInvalidValue where TMA cannot load the
+// shape (row strides of K and N bytes in multiples of 16, K > 0).
+template <typename Cfg>
+cudaError_t wgmma_shape(int m, int k, int n, int* info) {
+  if (k <= 0 || k % 16 || n % 16) return cudaErrorInvalidValue;
+  info[0] = (m + Cfg::kRows - 1) / Cfg::kRows;
+  info[1] = (n + Cfg::kCols - 1) / Cfg::kCols;
+  info[2] = Cfg::kThreads;
+  info[3] = Cfg::kSmem;
+  return cudaSuccess;
+}
+
 template <typename OutT, typename Cfg>
 cudaError_t launch_wgmma(const void* x, const void* w, const void* sx,
                          const void* sw, void* out, int m, int k, int n,
                          void* stream) {
   // TMA: row strides and base addresses in multiples of 16 bytes
-  if (k <= 0 || k % 16 || n % 16 ||
-      reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16) {
+  int info[4];
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      wgmma_shape<Cfg>(m, k, n, info) != cudaSuccess) {
     return cudaErrorInvalidValue;
   }
   auto kernel = int8_wgmma_kernel<OutT, Cfg>;
@@ -689,9 +713,7 @@ cudaError_t launch_wgmma(const void* x, const void* w, const void* sx,
       !tensor_map(&wmap, w, n, k, Cfg::kWgCols, kTileK, Cfg::kWgCols)) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((m + Cfg::kRows - 1) / Cfg::kRows,
-                  (n + Cfg::kCols - 1) / Cfg::kCols);
-  kernel<<<grid, Cfg::kThreads, Cfg::kSmem,
+  kernel<<<dim3(info[0], info[1]), info[2], info[3],
            static_cast<cudaStream_t>(stream)>>>(
       xmap, wmap, static_cast<const float*>(sx),
       static_cast<const float*>(sw), static_cast<OutT*>(out), m, k, n);
@@ -720,6 +742,25 @@ cudaError_t launch(int path, const void* x, const void* w, const void* sx,
   }
 }
 
+template <typename OutT>
+cudaError_t kernel_attributes(int path, cudaFuncAttributes* attr) {
+  switch (path) {
+    case 0:
+      return cudaFuncGetAttributes(
+          attr, reinterpret_cast<const void*>(int8_matmul_kernel<OutT>));
+    case 1:
+      return cudaFuncGetAttributes(
+          attr, reinterpret_cast<const void*>(
+                    int8_wgmma_kernel<OutT, DecodeConfig>));
+    case 2:
+      return cudaFuncGetAttributes(
+          attr, reinterpret_cast<const void*>(
+                    int8_wgmma_kernel<OutT, PrefillConfig>));
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x (m, k), w (k, n) int8; sx (m,), sw (n,) float32; out (m, n): bfloat16
@@ -739,4 +780,33 @@ extern "C" int int8_matmul_launch(const void* x, const void* w,
 extern "C" int int8_matmul_smem(int path) {
   return path == 1 ? DecodeConfig::kSmem
                    : path == 2 ? PrefillConfig::kSmem : 0;
+}
+
+// The launch int8_matmul_launch makes for these arguments, and the
+// attributes of the kernel it launches: info = {grid.x, grid.y, threads,
+// dynamic shared bytes} and {registers, local bytes, static shared
+// bytes, most threads a block} (the launch contract of
+// kernels/int8_matmul/ops.py is held to them).
+extern "C" int int8_matmul_launch_shape(int m, int k, int n, int out_bf16,
+                                        int path, int* info) {
+  switch (path) {
+    case 0: mma_sync_shape(m, n, info); return cudaSuccess;
+    case 1: return wgmma_shape<DecodeConfig>(m, k, n, info);
+    case 2: return wgmma_shape<PrefillConfig>(m, k, n, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int int8_matmul_attributes(int m, int k, int n, int out_bf16,
+                                      int path, int* info) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = out_bf16
+                              ? kernel_attributes<__nv_bfloat16>(path, &attr)
+                              : kernel_attributes<float>(path, &attr);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)attr.sharedSizeBytes;
+  info[3] = attr.maxThreadsPerBlock;
+  return cudaSuccess;
 }

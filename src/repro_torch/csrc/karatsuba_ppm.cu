@@ -59,13 +59,19 @@ __global__ void __launch_bounds__(tiles::kTileRows)
 template <int N>
 cudaError_t launch(const void* a, const void* b, void* out, int bsz,
                    void* stream) {
-  const int T = tiles::kTileRows;  // at most 16,896 B: no attribute needed
-  const size_t smem = N == 2 ? 0 : (size_t)T * tiles::pitch(2 * N) * 4;
-  karatsuba_ppm_kernel<N><<<(bsz + T - 1) / T, T, smem,
+  int info[4];
+  tiles::tile_launch_shape(N, 1, bsz, N, N, info);
+  karatsuba_ppm_kernel<N><<<info[0], info[2], info[3],
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint32_t*>(out), bsz);
   return cudaGetLastError();
+}
+
+// The bulk launch: rows of 2 limbs (tiles::bulk_launch_shape).
+cudaError_t bulk_launch_at(int bsz, int n, int* info) {
+  if (n != 2) return cudaErrorInvalidValue;
+  return tiles::bulk_launch_shape<2>(karatsuba_ppm_bulk_kernel, 1, bsz, info);
 }
 
 }  // namespace
@@ -91,18 +97,14 @@ extern "C" int karatsuba_ppm_launch(const void* a, const void* b, void* out,
 extern "C" int karatsuba_ppm_bulk_launch(const void* a, const void* b,
                                          void* out, int bsz, int n,
                                          void* stream) {
-  using B = tiles::Bulk<2>;
-  if (n != 2 || bsz % 2 || !tiles::aligned16(a) || !tiles::aligned16(b) ||
+  if (!tiles::aligned16(a) || !tiles::aligned16(b) ||
       !tiles::aligned16(out)) {
     return cudaErrorInvalidValue;
   }
-  int blocks = 0;
-  cudaError_t err = tiles::resident_blocks(
-      karatsuba_ppm_bulk_kernel, B::kThreads, B::kBytes, B::kPerSm, &blocks);
+  int info[4];
+  const cudaError_t err = bulk_launch_at(bsz, n, info);
   if (err != cudaSuccess) return err;
-  const int tiles_n = (bsz + B::kTileRows - 1) / B::kTileRows;
-  karatsuba_ppm_bulk_kernel<<<tiles_n < blocks ? tiles_n : blocks,
-                              B::kThreads, B::kBytes,
+  karatsuba_ppm_bulk_kernel<<<info[0], info[2], info[3],
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint32_t*>(out), bsz);
@@ -114,4 +116,38 @@ extern "C" int karatsuba_ppm_bulk_launch(const void* a, const void* b,
 extern "C" int karatsuba_ppm_bulk_shape(int n, int* info) {
   if (n != 2) return cudaErrorInvalidValue;
   return tiles::bulk_shape<2>(karatsuba_ppm_bulk_kernel, info);
+}
+
+// The launch each entry above makes for these arguments, and the
+// attributes of the kernel it launches: info = {grid.x, grid.y, threads,
+// dynamic shared bytes} and {registers, local bytes, static shared
+// bytes, most threads a block} (the launch contract of
+// kernels/karatsuba_ppm/ops.py is held to them).
+extern "C" int karatsuba_ppm_launch_shape(int bsz, int n, int* info) {
+  if (n < 2 || n > 16 || n % 2) return cudaErrorInvalidValue;
+  tiles::tile_launch_shape(n, 1, bsz, n, n, info);
+  return cudaSuccess;
+}
+
+extern "C" int karatsuba_ppm_attributes(int bsz, int n, int* info) {
+  switch (n) {
+    case 2: return tiles::attributes(karatsuba_ppm_kernel<2>, info);
+    case 4: return tiles::attributes(karatsuba_ppm_kernel<4>, info);
+    case 6: return tiles::attributes(karatsuba_ppm_kernel<6>, info);
+    case 8: return tiles::attributes(karatsuba_ppm_kernel<8>, info);
+    case 10: return tiles::attributes(karatsuba_ppm_kernel<10>, info);
+    case 12: return tiles::attributes(karatsuba_ppm_kernel<12>, info);
+    case 14: return tiles::attributes(karatsuba_ppm_kernel<14>, info);
+    case 16: return tiles::attributes(karatsuba_ppm_kernel<16>, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int karatsuba_ppm_bulk_launch_shape(int bsz, int n, int* info) {
+  return bulk_launch_at(bsz, n, info);
+}
+
+extern "C" int karatsuba_ppm_bulk_attributes(int bsz, int n, int* info) {
+  if (n != 2) return cudaErrorInvalidValue;
+  return tiles::attributes(karatsuba_ppm_bulk_kernel, info);
 }

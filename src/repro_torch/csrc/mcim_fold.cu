@@ -131,34 +131,41 @@ __global__ void __launch_bounds__(tiles::kTileRows)
 }
 
 // A per-thread kernel of MAXL limbs (fold_kernel, kara_fold_kernel): one
-// block a tile.
+// block a tile (tiles::tile_launch_shape).
 template <int MAXL, class Kernel>
 cudaError_t launch_tiles(Kernel kernel, const uint32_t* a, const uint32_t* b,
                          uint32_t* out, int bsz, int la, int lb,
                          cudaStream_t s) {
-  const int T = tiles::kTileRows;  // at most 16,896 B: no attribute needed
-  const size_t smem = MAXL == 2 ? 0 : (size_t)T * tiles::pitch(la + lb) * 4;
-  kernel<<<(bsz + T - 1) / T, T, smem, s>>>(a, b, out, bsz, la, lb);
+  int info[4];
+  tiles::tile_launch_shape(MAXL, 1, bsz, la, lb, info);
+  kernel<<<info[0], info[2], info[3], s>>>(a, b, out, bsz, la, lb);
   return cudaGetLastError();
+}
+
+// FB's and FF's bulk launch at L limbs (tiles::bulk_launch_shape).
+template <int L>
+cudaError_t fold_bulk_shape(int bsz, int* info) {
+  return tiles::bulk_launch_shape<L>(fold_bulk_kernel<L>, 1, bsz, info);
 }
 
 template <int L>
 cudaError_t launch_fold_bulk(const uint32_t* a, const uint32_t* b,
                              uint32_t* out, int bsz, cudaStream_t s) {
-  using B = tiles::Bulk<L>;
-  const int tiles_n = (bsz + B::kTileRows - 1) / B::kTileRows;
-  if ((long long)bsz * L % 4 || !tiles::aligned16(a) ||
-      !tiles::aligned16(b) || !tiles::aligned16(out)) {
+  if (!tiles::aligned16(a) || !tiles::aligned16(b) ||
+      !tiles::aligned16(out)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = fold_bulk_kernel<L>;
-  int blocks = 0;
-  cudaError_t err = tiles::resident_blocks(kernel, B::kThreads, B::kBytes,
-                                           B::kPerSm, &blocks);
+  int info[4];
+  const cudaError_t err = fold_bulk_shape<L>(bsz, info);
   if (err != cudaSuccess) return err;
-  kernel<<<tiles_n < blocks ? tiles_n : blocks, B::kThreads, B::kBytes, s>>>(
-      a, b, out, bsz);
+  fold_bulk_kernel<L><<<info[0], info[2], info[3], s>>>(a, b, out, bsz);
   return cudaGetLastError();
+}
+
+// N of the folded Karatsuba's rows: max(LA, LB) rounded up to even.
+inline int kara_n(int la, int lb) {
+  const int n = la > lb ? la : lb;
+  return n + n % 2;
 }
 
 template <int N>
@@ -226,9 +233,7 @@ extern "C" int mcim_fold_bulk_shape(int la, int* info) {
 extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
                                           void* out, int bsz, int la,
                                           int lb, void* stream) {
-  int n = la > lb ? la : lb;
-  n += n % 2;
-  switch (n) {
+  switch (kara_n(la, lb)) {
     case 2: return launch_kara<2>(a, b, out, bsz, la, lb, stream);
     case 4: return launch_kara<4>(a, b, out, bsz, la, lb, stream);
     case 6: return launch_kara<6>(a, b, out, bsz, la, lb, stream);
@@ -237,5 +242,68 @@ extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
     case 12: return launch_kara<12>(a, b, out, bsz, la, lb, stream);
     case 14: return launch_kara<14>(a, b, out, bsz, la, lb, stream);
     default: return launch_kara<16>(a, b, out, bsz, la, lb, stream);
+  }
+}
+
+// The launch each entry above makes for these arguments, and the
+// attributes of the kernel it launches: info = {grid.x, grid.y, threads,
+// dynamic shared bytes} and {registers, local bytes, static shared
+// bytes, most threads a block} (the launch contracts of
+// kernels/mcim_fold/ops.py are held to them).
+extern "C" int mcim_fold_launch_shape(int bsz, int la, int lb, int* info) {
+  tiles::tile_launch_shape(limbs::bucket(la, lb), 1, bsz, la, lb, info);
+  return cudaSuccess;
+}
+
+extern "C" int mcim_fold_attributes(int bsz, int la, int lb, int* info) {
+  switch (limbs::bucket(la, lb)) {
+    case 2: return tiles::attributes(fold_kernel<2>, info);
+    case 4: return tiles::attributes(fold_kernel<4>, info);
+    case 8: return tiles::attributes(fold_kernel<8>, info);
+    default: return tiles::attributes(fold_kernel<16>, info);
+  }
+}
+
+extern "C" int mcim_fold_bulk_launch_shape(int bsz, int la, int lb,
+                                           int* info) {
+  if (la != lb) return cudaErrorInvalidValue;
+  switch (la) {
+    case 2: return fold_bulk_shape<2>(bsz, info);
+    case 4: return fold_bulk_shape<4>(bsz, info);
+    case 8: return fold_bulk_shape<8>(bsz, info);
+    case 16: return fold_bulk_shape<16>(bsz, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mcim_fold_bulk_attributes(int bsz, int la, int lb,
+                                         int* info) {
+  if (la != lb) return cudaErrorInvalidValue;
+  switch (la) {
+    case 2: return tiles::attributes(fold_bulk_kernel<2>, info);
+    case 4: return tiles::attributes(fold_bulk_kernel<4>, info);
+    case 8: return tiles::attributes(fold_bulk_kernel<8>, info);
+    case 16: return tiles::attributes(fold_bulk_kernel<16>, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mcim_fold_karatsuba_launch_shape(int bsz, int la, int lb,
+                                                int* info) {
+  tiles::tile_launch_shape(kara_n(la, lb), 1, bsz, la, lb, info);
+  return cudaSuccess;
+}
+
+extern "C" int mcim_fold_karatsuba_attributes(int bsz, int la, int lb,
+                                              int* info) {
+  switch (kara_n(la, lb)) {
+    case 2: return tiles::attributes(kara_fold_kernel<2>, info);
+    case 4: return tiles::attributes(kara_fold_kernel<4>, info);
+    case 6: return tiles::attributes(kara_fold_kernel<6>, info);
+    case 8: return tiles::attributes(kara_fold_kernel<8>, info);
+    case 10: return tiles::attributes(kara_fold_kernel<10>, info);
+    case 12: return tiles::attributes(kara_fold_kernel<12>, info);
+    case 14: return tiles::attributes(kara_fold_kernel<14>, info);
+    default: return tiles::attributes(kara_fold_kernel<16>, info);
   }
 }

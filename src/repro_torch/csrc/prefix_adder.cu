@@ -92,22 +92,58 @@ __global__ void prefix_adder_kernel(const int64_t* __restrict__ cols,
   }
 }
 
+// Lanes a row: the power of two >= w, at most 32.
+inline int segment(int w) {
+  int seg = 1;
+  while (seg < w && seg < 32) seg <<= 1;
+  return seg;
+}
+
 }  // namespace
+
+// The launch of a (bsz, w) row block: info = {grid.x, grid.y, threads,
+// dynamic shared bytes}, a segment of lanes a row (prefix_adder_launch
+// launches what it returns).
+extern "C" int prefix_adder_launch_shape(int bsz, int w, int* info) {
+  const long long threads = (long long)bsz * segment(w);
+  info[0] = (int)((threads + kBlock - 1) / kBlock);
+  info[1] = 1;
+  info[2] = kBlock;
+  info[3] = 0;
+  return cudaSuccess;
+}
+
+// The attributes of the kernel a launch of width w runs: info =
+// {registers, local bytes, static shared bytes, most threads a block}.
+extern "C" int prefix_adder_attributes(int bsz, int w, int* info) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, reinterpret_cast<const void*>(
+                 w > 32 ? prefix_adder_kernel<true>
+                        : prefix_adder_kernel<false>));
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)attr.sharedSizeBytes;
+  info[3] = attr.maxThreadsPerBlock;
+  return cudaSuccess;
+}
 
 // cols: (bsz, w) int64; out: (bsz, w) uint32 limbs; 1 <= w <= 64.
 extern "C" int prefix_adder_launch(const void* cols, void* out, int bsz,
                                    int w, void* stream) {
-  int seg = 1;
-  while (seg < w && seg < 32) seg <<= 1;
-  const long long threads = (long long)bsz * seg;
-  const dim3 grid((unsigned)((threads + kBlock - 1) / kBlock));
+  int info[4];
+  prefix_adder_launch_shape(bsz, w, info);
+  const int seg = segment(w);
   auto s = static_cast<cudaStream_t>(stream);
   auto* c = static_cast<const int64_t*>(cols);
   auto* o = static_cast<uint32_t*>(out);
   if (w > 32) {
-    prefix_adder_kernel<true><<<grid, kBlock, 0, s>>>(c, o, bsz, w, seg);
+    prefix_adder_kernel<true><<<info[0], info[2], info[3], s>>>(c, o, bsz, w,
+                                                              seg);
   } else {
-    prefix_adder_kernel<false><<<grid, kBlock, 0, s>>>(c, o, bsz, w, seg);
+    prefix_adder_kernel<false><<<info[0], info[2], info[3], s>>>(c, o, bsz,
+                                                               w, seg);
   }
   return cudaGetLastError();
 }

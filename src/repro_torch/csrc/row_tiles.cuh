@@ -495,4 +495,56 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The launch of a bulk kernel of L limbs over n_inst instances of `rows`
+// rows on this device: info = {grid.x, grid.y, threads, dynamic shared
+// bytes}, the persistent grid min(tiles, resident blocks). Returns
+// cudaErrorInvalidValue where the bulk path does not take the rows (rows
+// * L not a multiple of 4, or 2**31 tiles or more). The bulk launchers
+// launch what it returns; `*_launch_shape` exports it.
+template <int L, class Kernel>
+cudaError_t bulk_launch_shape(Kernel kernel, long long n_inst,
+                              long long rows, int* info) {
+  using B = Bulk<L>;
+  const long long total =
+      n_inst * ((rows + B::kTileRows - 1) / B::kTileRows);
+  if (total >= (1LL << 31) || rows * L % 4) return cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t err = resident_blocks(kernel, B::kThreads, B::kBytes,
+                                          B::kPerSm, &blocks);
+  if (err != cudaSuccess) return err;
+  info[0] = (int)(total < blocks ? total : blocks);
+  info[1] = 1;
+  info[2] = B::kThreads;
+  info[3] = (int)B::kBytes;
+  return cudaSuccess;
+}
+
+// The launch of a per-thread kernel of MAXL limbs (coalesced_tile):
+// info = {tiles, n_inst, kTileRows threads, dynamic shared bytes}, one
+// block a tile of kTileRows rows of an instance; products wider than 4
+// words leave through kTileRows rows of pitch(la + lb) words (at most
+// 16,896 B: no attribute needed).
+inline void tile_launch_shape(int maxl, int n_inst, int rows, int la, int lb,
+                              int* info) {
+  info[0] = (rows + kTileRows - 1) / kTileRows;
+  info[1] = n_inst;
+  info[2] = kTileRows;
+  info[3] = maxl == 2 ? 0 : kTileRows * pitch(la + lb) * 4;
+}
+
+// A compiled kernel's attributes: info = {registers a thread, local
+// (spilled) bytes a thread, static shared bytes, most threads a block}.
+template <class Kernel>
+cudaError_t attributes(Kernel kernel, int* info) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)attr.sharedSizeBytes;
+  info[3] = attr.maxThreadsPerBlock;
+  return cudaSuccess;
+}
+
 }  // namespace tiles

@@ -12,11 +12,11 @@ replicates the bank over a list of devices (the reference's mesh axis;
 :mod:`repro_torch.core.bank.sharded`), and its throughput, area and
 peak power count every replica.
 
-Every plan passes the static gate ``verify.assert_plan`` before a bank
-is built around it, as in the reference; the reference's jaxpr-level
-``assert_plan_dataflow`` checks Pallas launches and has no counterpart
-here.  ``CompiledDesign.serve`` runs the online serving loop
-(:mod:`repro_torch.serving`).
+Every plan passes the static gates ``verify.assert_plan`` and then
+``verify.assert_plan_dataflow`` (the CUDA launches the plan implies,
+from the kernels' launch contracts) before a bank is built around it,
+as in the reference.  ``CompiledDesign.serve`` runs the online serving
+loop (:mod:`repro_torch.serving`).
 """
 from __future__ import annotations
 
@@ -352,6 +352,9 @@ def _plan_with_timing(spec: DesignSpec):
     # cannot prove overflow-safe and schedule-conformant never compiles
     verify.assert_plan(spec.bits_a, spec.bits_b, plan.configs,
                        plan.throughput)
+    # dataflow gate: every CUDA launch the plan implies is hazard-free,
+    # in bounds and within its shared-memory model (nothing executes)
+    verify.assert_plan_dataflow(spec.bits_a, spec.bits_b, plan.configs)
     return plan, fallback
 
 
@@ -420,6 +423,7 @@ def compile_plan(spec: DesignSpec, configs, device=None,
     # prove safe before a bank is built around them
     verify.assert_plan(spec.bits_a, spec.bits_b, plan.configs,
                        plan.throughput)
+    verify.assert_plan_dataflow(spec.bits_a, spec.bits_b, plan.configs)
     backend = _resolve_backend(spec, device)
     bank = Bank(plan, spec.bits_a, spec.bits_b, backend=backend,
                 scheduler=spec.scheduler, device=device)

@@ -124,6 +124,27 @@ def launcher(lib: str, symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
+def query(lib: str, symbol: str, ints) -> tuple:
+    """Call a query entry ``int symbol(int x len(ints), int* info)`` of a
+    source's library: a launcher's ``*_launch_shape`` (grid.x, grid.y,
+    threads, dynamic shared bytes of the launch it makes for these
+    arguments) or ``*_attributes`` (registers, local bytes, static
+    shared bytes, most threads a block of the kernel it launches).
+    Raises where the entry returns a CUDA error."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = getattr(library(lib), symbol)
+        fn.argtypes = ([ctypes.c_int] * len(ints)
+                       + [ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
+        _FNS[symbol] = fn
+    info = (ctypes.c_int * 4)()
+    err = fn(*ints, info)
+    if err:
+        raise RuntimeError(f"{symbol}{tuple(ints)}: CUDA error {err}")
+    return tuple(info)
+
+
 def launch(kernel: str, fn, tensors, ints, path: str | None = None) -> None:
     """Launch ``fn`` on the current stream of the tensors' device, count
     it (and its ``path``, for a kernel with two), and raise if CUDA

@@ -7,7 +7,10 @@ on a persistent grid, and a coalesced per-thread path for what a bulk
 copy cannot take.  :func:`launch_plan` picks the path from the shape and
 alignment alone; :func:`fused_bank_mul` launches it for CUDA tensors and
 runs :func:`fused_bank_mul_ref`, a windowed schoolbook on int64 lanes,
-for CPU tensors; nothing else selects between them.
+for CPU tensors; nothing else selects between them.  The launch is the
+custom op ``repro_torch::fused_bank_mul_kernel``, whose fake version
+gives the product's shape from the blocks' alone (fake tensors see
+through it: ``verify.contracts.check_bank_static``).
 """
 from __future__ import annotations
 
@@ -77,28 +80,29 @@ def fused_bank_mul(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     """
     if all(t.device.type == "cpu" for t in (a_blocks, b_blocks, table)):
         return fused_bank_mul_ref(a_blocks, b_blocks, table)
+    return fused_bank_mul_kernel(a_blocks, b_blocks, table, path="auto")
+
+
+# One launch of the path ``path`` (one of :data:`PATHS`, or "auto":
+# :func:`launch_plan`'s choice) on CUDA tensors.  :func:`fused_bank_mul`
+# passes "auto"; naming a path lets the card compare the paths on one
+# shape.  The bulk path raises on blocks only the per-thread path takes.
+@torch.library.custom_op("repro_torch::fused_bank_mul_kernel",
+                         mutates_args=())
+def fused_bank_mul_kernel(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
+                          table: torch.Tensor, *, path: str
+                          ) -> torch.Tensor:
     _check_shapes(a_blocks, b_blocks, table)
     n_inst, rows, la = a_blocks.shape
-    path = launch_plan(n_inst, rows, la, b_blocks.shape[-1],
-                       _row_tiles.is_aligned(a_blocks, b_blocks))
-    return fused_bank_mul_kernel(a_blocks, b_blocks, table, path=path)
-
-
-def fused_bank_mul_kernel(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
-                          table: torch.Tensor, *, path: str) -> torch.Tensor:
-    """One launch of the path ``path`` (one of :data:`PATHS`) on CUDA
-    tensors.  :func:`fused_bank_mul` passes :func:`launch_plan`'s choice;
-    naming the other lets the card compare the paths on one shape.  The
-    bulk path raises on blocks only the per-thread path takes."""
-    _check_shapes(a_blocks, b_blocks, table)
+    lb, max_steps = b_blocks.shape[-1], table.shape[1]
+    planned = launch_plan(n_inst, rows, la, lb,
+                          _row_tiles.is_aligned(a_blocks, b_blocks))
+    if path == "auto":
+        path = planned
     if path not in PATHS:
         raise ValueError(f"bank_fold: path must be one of {PATHS}, "
                          f"got {path!r}")
-    n_inst, rows, la = a_blocks.shape
-    lb, max_steps = b_blocks.shape[-1], table.shape[1]
-    if path == "bulk" and launch_plan(
-            n_inst, rows, la, lb,
-            _row_tiles.is_aligned(a_blocks, b_blocks)) != "bulk":
+    if path == "bulk" and planned != "bulk":
         raise ValueError(f"bank_fold: {tuple(a_blocks.shape)} x "
                          f"{tuple(b_blocks.shape)} blocks are not bulk "
                          f"copies' spans; the bulk path does not take them")
@@ -113,3 +117,11 @@ def fused_bank_mul_kernel(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     _build.launch("bank_fold", fn, (a_blocks, b_blocks, table, out),
                   (n_inst, rows, la, lb, max_steps), path=path)
     return out
+
+
+@fused_bank_mul_kernel.register_fake
+def _(a_blocks, b_blocks, table, *, path):
+    _check_shapes(a_blocks, b_blocks, table)
+    n_inst, rows, la = a_blocks.shape
+    return a_blocks.new_empty((n_inst, rows, la + b_blocks.shape[-1]),
+                              dtype=L.LIMB_DTYPE)

@@ -1,6 +1,7 @@
 from .kernel import (PATHS, int8_matmul, int8_matmul_kernel, int8_matmul_ref,
                      kernel_path)
-from .ops import quantized_matmul, quantize_rows
+from .ops import launch_contract, quantized_matmul, quantize_rows
 
 __all__ = ["PATHS", "int8_matmul", "int8_matmul_kernel", "int8_matmul_ref",
-           "kernel_path", "quantized_matmul", "quantize_rows"]
+           "kernel_path", "quantized_matmul", "quantize_rows",
+           "launch_contract"]

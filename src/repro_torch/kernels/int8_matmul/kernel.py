@@ -7,7 +7,9 @@ TMA for the shapes TMA can load, and an ``mma.sync`` kernel for the
 rest.  :func:`kernel_path` picks one from the shape and alignment alone;
 :func:`int8_matmul` launches it for CUDA tensors, whatever their shape,
 and runs :func:`int8_matmul_ref` for CPU tensors; nothing else selects
-between them.
+between them.  The launch is the custom op
+``repro_torch::int8_matmul_kernel``, whose fake version gives the
+output's shape and dtype from the operands' shapes alone.
 
 All compute ``cast(float32(acc) * sx[i] * sw[j])`` in that order, with
 ``acc`` the exact int32 sum, so they agree bit for bit.
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _row_tiles
 
 OUT_DTYPES = (torch.bfloat16, torch.float32)
 #: the kernels of ``csrc/int8_matmul.cu``, in the order of its ``path``
@@ -65,24 +67,18 @@ def int8_matmul_ref(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
     return out.to(out_dtype)
 
 
-def _checked(x, w, sx, sw, out_dtype):
-    """Validate the operands; return (m, k, n)."""
+def _checked(x, w, sx, sw, out_dtype) -> None:
+    """Validate the operands of an (M, K) @ (K, N) product."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"int8_matmul: expected (M, K) @ (K, N), got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
     if out_dtype not in OUT_DTYPES:
         raise ValueError(f"int8_matmul: out_dtype must be one of "
                          f"{OUT_DTYPES}, got {out_dtype}")
-    m, k = x.shape
-    n = w.shape[1]
-    if sx.numel() != m or sw.numel() != n:
+    if sx.numel() != x.shape[0] or sw.numel() != w.shape[1]:
         raise ValueError(f"int8_matmul: scales {tuple(sx.shape)}, "
-                         f"{tuple(sw.shape)} for a ({m}, {n}) product")
-    return m, k, n
-
-
-def _aligned(x: torch.Tensor, w: torch.Tensor) -> bool:
-    return x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+                         f"{tuple(sw.shape)} for a ({x.shape[0]}, "
+                         f"{w.shape[1]}) product")
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
@@ -96,29 +92,35 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
     signature parity: the K fold is exact, so they change nothing, and
     the CUDA kernels tile every shape, ragged edges included, themselves.
     """
-    m, k, n = _checked(x, w, sx, sw, out_dtype)
+    _checked(x, w, sx, sw, out_dtype)
     if min(block_m, block_n, block_k) < 1:
         raise ValueError(f"blocks must be positive, got "
                          f"{(block_m, block_n, block_k)}")
     if all(t.device.type == "cpu" for t in (x, w, sx, sw)):
         return int8_matmul_ref(x, w, sx, sw, out_dtype=out_dtype)
-    path = kernel_path(m, k, n, _aligned(x, w))
-    return int8_matmul_kernel(x, w, sx, sw, path=path, out_dtype=out_dtype)
+    return int8_matmul_kernel(x, w, sx, sw, path="auto",
+                              out_dtype=out_dtype)
 
 
+# One launch of the kernel ``path`` (one of :data:`PATHS`, or "auto":
+# :func:`kernel_path`'s choice) on CUDA tensors.  :func:`int8_matmul`
+# passes "auto"; naming a kernel lets the card compare the kernels on
+# one shape.  A wgmma path raises on a shape that only mma.sync takes.
+@torch.library.custom_op("repro_torch::int8_matmul_kernel", mutates_args=())
 def int8_matmul_kernel(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
                        sw: torch.Tensor, *, path: str,
-                       out_dtype=torch.bfloat16) -> torch.Tensor:
-    """One launch of the kernel ``path`` (one of :data:`PATHS`) on CUDA
-    tensors.  :func:`int8_matmul` passes :func:`kernel_path`'s choice;
-    naming another lets the card compare the kernels on one shape.  A
-    wgmma path raises on a shape that only mma.sync takes."""
-    m, k, n = _checked(x, w, sx, sw, out_dtype)
+                       out_dtype: torch.dtype = torch.bfloat16
+                       ) -> torch.Tensor:
+    _checked(x, w, sx, sw, out_dtype)
+    m, k = x.shape
+    n = w.shape[1]
+    planned = kernel_path(m, k, n, _row_tiles.is_aligned(x, w))
+    if path == "auto":
+        path = planned
     if path not in PATHS:
         raise ValueError(f"int8_matmul: path must be one of {PATHS}, "
                          f"got {path!r}")
-    if path != "mma_sync" and kernel_path(
-            m, k, n, _aligned(x, w)) == "mma_sync":
+    if path != "mma_sync" and planned == "mma_sync":
         raise ValueError(f"int8_matmul: ({m}, {k}) @ ({k}, {n}) is not a "
                          f"shape TMA loads; {path} does not take it")
     _build.check_cuda_operands("int8_matmul", x, w, dtype=torch.int8)
@@ -133,3 +135,9 @@ def int8_matmul_kernel(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
                   (m, k, n, int(out_dtype == torch.bfloat16),
                    PATHS.index(path)))
     return out
+
+
+@int8_matmul_kernel.register_fake
+def _(x, w, sx, sw, *, path, out_dtype=torch.bfloat16):
+    _checked(x, w, sx, sw, out_dtype)
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=out_dtype)

@@ -12,7 +12,9 @@ the H100, ``PERF.md`` section 6).
 :func:`launch_plan` picks the path from the shape and alignment alone;
 :func:`karatsuba_ppm_mul` launches it for CUDA tensors and runs
 :func:`karatsuba_ppm_mul_ref`, the core library's one-level Karatsuba
-multiplier, for CPU tensors; nothing else selects between them.
+multiplier, for CPU tensors; nothing else selects between them.  The
+launch is the custom op ``repro_torch::karatsuba_ppm_kernel``, whose
+fake version gives the product's shape from the operands' alone.
 """
 from __future__ import annotations
 
@@ -66,25 +68,26 @@ def karatsuba_ppm_mul(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"tile_b must be positive, got {tile_b}")
     if a.device.type == "cpu" and b.device.type == "cpu":
         return karatsuba_ppm_mul_ref(a, b)
-    bsz, n = a.shape
-    path = launch_plan(bsz, n, _row_tiles.is_aligned(a, b))
-    return karatsuba_ppm_kernel(a, b, path=path)
+    return karatsuba_ppm_kernel(a, b, path="auto")
 
 
+# One launch of the path ``path`` (one of :data:`PATHS`, or "auto":
+# :func:`launch_plan`'s choice) on CUDA tensors.  :func:`karatsuba_ppm_mul`
+# passes "auto"; naming a path lets the card compare the paths on one
+# shape.  The bulk path raises on operands only the per-thread path takes.
+@torch.library.custom_op("repro_torch::karatsuba_ppm_kernel",
+                         mutates_args=())
 def karatsuba_ppm_kernel(a: torch.Tensor, b: torch.Tensor, *,
                          path: str) -> torch.Tensor:
-    """One launch of the path ``path`` (one of :data:`PATHS`) on CUDA
-    tensors.  :func:`karatsuba_ppm_mul` passes :func:`launch_plan`'s
-    choice; naming the other lets the card compare the paths on one
-    shape.  The bulk path raises on operands only the per-thread path
-    takes."""
     _check_shapes(a, b)
+    bsz, n = a.shape
+    planned = launch_plan(bsz, n, _row_tiles.is_aligned(a, b))
+    if path == "auto":
+        path = planned
     if path not in PATHS:
         raise ValueError(f"karatsuba_ppm: path must be one of {PATHS}, "
                          f"got {path!r}")
-    bsz, n = a.shape
-    if path == "bulk" and launch_plan(
-            bsz, n, _row_tiles.is_aligned(a, b)) != "bulk":
+    if path == "bulk" and planned != "bulk":
         raise ValueError(f"karatsuba_ppm: the bulk path does not take "
                          f"{tuple(a.shape)} operands (rows of {BULK_N} "
                          f"limbs, 16-byte aligned, B * N a multiple of 4)")
@@ -98,3 +101,9 @@ def karatsuba_ppm_kernel(a: torch.Tensor, b: torch.Tensor, *,
     fn = _build.launcher("karatsuba_ppm", symbol, 3, 2)
     _build.launch("karatsuba_ppm", fn, (a, b, out), (bsz, n), path=path)
     return out
+
+
+@karatsuba_ppm_kernel.register_fake
+def _(a, b, *, path):
+    _check_shapes(a, b)
+    return a.new_empty((a.shape[0], 2 * a.shape[1]), dtype=L.LIMB_DTYPE)

@@ -3,7 +3,29 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import karatsuba_ppm_mul, karatsuba_ppm_mul_ref
+from .kernel import karatsuba_ppm_mul, karatsuba_ppm_mul_ref, launch_plan
+
+
+def launch_contract(n: int, batch: int = 256):
+    """Static :class:`~repro_torch.kernels.introspect.LaunchContract`.
+
+    One spatial-Karatsuba launch over a ``batch`` of (N, N) even-limb
+    operands on the path :func:`.kernel.launch_plan` takes for aligned
+    operands: the bulk walk at 2 limbs, else one block a tile.
+    """
+    from repro_torch.kernels import introspect
+    if n % 2:
+        raise ValueError("even limb count required (pad first)")
+    path = launch_plan(batch, n, True)
+    return introspect.row_tile_contract(
+        name=f"karatsuba_ppm[n={n},batch={batch}]", lib="karatsuba_ppm",
+        kernel=("karatsuba_ppm_bulk_launch" if path == "bulk"
+                else "karatsuba_ppm_launch"),
+        path=path, n_inst=1, rows=batch, la=n, lb=n,
+        launch_args=(batch, n),
+        operands={"a": introspect.Operand((batch, n), "int32"),
+                  "b": introspect.Operand((batch, n), "int32")},
+        out_shape=(batch, 2 * n), ops=batch * introspect.kara_row_ops(n))
 
 
 def kara_mul(a: torch.Tensor, b: torch.Tensor, use_kernel: bool = True

@@ -13,7 +13,10 @@ shape and alignment alone, and their launches count apart.  The folded
 Karatsuba is the exact product too: its kernel runs the spatial
 Karatsuba's row arithmetic (``csrc/kara_rows.cuh``) on rows zero-padded
 to an even N = max(LA, LB), on the per-thread path alone, one launch a
-call counted under ``mcim_fold_karatsuba``.
+call counted under ``mcim_fold_karatsuba``.  The launches are the custom
+ops ``repro_torch::mcim_fold_kernel`` and
+``repro_torch::mcim_fold_karatsuba_kernel``, whose fake versions give
+the product's shape from the operands' alone.
 """
 from __future__ import annotations
 
@@ -109,16 +112,13 @@ def fold_launch_plan(bsz: int, la: int, lb: int, aligned: bool) -> str:
     return _row_tiles.plan(bsz, la, lb, aligned)
 
 
-def _checked(name: str, a: torch.Tensor, b: torch.Tensor) -> tuple:
-    """Validate CUDA operands; return (bsz, la, lb)."""
+def _checked(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Validate CUDA operands: (B, LA) x (B, LB) int32 limbs."""
     _build.check_cuda_operands(name, a, b)
     if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"{name}: expected (B, LA) x (B, LB), got "
                          f"{tuple(a.shape)} x {tuple(b.shape)}")
-    bsz, la = a.shape
-    lb = b.shape[1]
-    _build.check_limbs(name, la, lb)
-    return bsz, la, lb
+    _build.check_limbs(name, a.shape[1], b.shape[1])
 
 
 def mcim_fold_mul(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
@@ -133,45 +133,76 @@ def mcim_fold_mul(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
     _check_schedule(ct, schedule)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return mcim_fold_mul_ref(a, b, ct=ct, schedule=schedule)
-    name = f"mcim_fold_{schedule}"
-    bsz, la, lb = _checked(name, a, b)
-    if schedule != "karatsuba":
-        path = fold_launch_plan(bsz, la, lb, _row_tiles.is_aligned(a, b))
-        return mcim_fold_kernel(a, b, schedule=schedule, path=path)
-    out = torch.empty((bsz, la + lb), dtype=L.LIMB_DTYPE, device=a.device)
-    if bsz == 0:
-        return out
-    fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 3)
-    _build.launch(name, fn, (a, b, out), (bsz, la, lb))
-    return out
+    _checked(f"mcim_fold_{schedule}", a, b)
+    if schedule == "karatsuba":
+        return mcim_fold_karatsuba_kernel(a, b)
+    return mcim_fold_kernel(a, b, schedule=schedule, path="auto")
 
 
+def _empty_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.empty((a.shape[0], a.shape[1] + b.shape[1]),
+                       dtype=L.LIMB_DTYPE, device=a.device)
+
+
+# One launch of FB's and FF's kernel on the path ``path`` (one of
+# :data:`PATHS`, or "auto": :func:`fold_launch_plan`'s choice) on CUDA
+# tensors, counted under ``mcim_fold_fb`` or ``mcim_fold_ff`` as
+# ``schedule`` says.  Both compute the exact product, so neither the
+# cycles nor the chunk reach the kernel.  :func:`mcim_fold_mul` passes
+# "auto"; naming a path lets the card compare the paths on one shape.
+# The bulk path raises on operands only the per-thread path takes.
+@torch.library.custom_op("repro_torch::mcim_fold_kernel", mutates_args=())
 def mcim_fold_kernel(a: torch.Tensor, b: torch.Tensor, *, schedule: str,
                      path: str) -> torch.Tensor:
-    """One launch of FB's and FF's kernel on the path ``path`` (one of
-    :data:`PATHS`) on CUDA tensors, counted under ``mcim_fold_fb`` or
-    ``mcim_fold_ff`` as ``schedule`` says.  Both compute the exact
-    product, so neither the cycles nor the chunk reach the kernel.
-    :func:`mcim_fold_mul` passes :func:`fold_launch_plan`'s choice;
-    naming the other lets the card compare the paths on one shape.  The
-    bulk path raises on operands only the per-thread path takes."""
     if schedule not in ("fb", "ff"):
         raise ValueError(f"schedule must be fb or ff, got {schedule!r}")
     name = f"mcim_fold_{schedule}"
+    planned = None
+    if a.ndim == 2 and b.ndim == 2:
+        planned = fold_launch_plan(a.shape[0], a.shape[1], b.shape[1],
+                                   _row_tiles.is_aligned(a, b))
+    if path == "auto":
+        path = planned
     if path not in PATHS:
         raise ValueError(f"{name}: path must be one of {PATHS}, got "
                          f"{path!r}")
-    if a.ndim == 2 and b.ndim == 2 and path == "bulk" and fold_launch_plan(
-            a.shape[0], a.shape[1], b.shape[1],
-            _row_tiles.is_aligned(a, b)) != "bulk":
+    if path == "bulk" and planned != "bulk":
         raise ValueError(f"{name}: {tuple(a.shape)} x {tuple(b.shape)} "
                          f"operands are not bulk copies' spans; the bulk "
                          f"path does not take them")
-    bsz, la, lb = _checked(name, a, b)
-    out = torch.empty((bsz, la + lb), dtype=L.LIMB_DTYPE, device=a.device)
-    if bsz == 0:
+    _checked(name, a, b)
+    out = _empty_product(a, b)
+    if out.shape[0] == 0:
         return out
     symbol = "mcim_fold_bulk_launch" if path == "bulk" else "mcim_fold_launch"
     fn = _build.launcher("mcim_fold", symbol, 3, 3)
-    _build.launch(name, fn, (a, b, out), (bsz, la, lb), path=path)
+    _build.launch(name, fn, (a, b, out), (a.shape[0], a.shape[1],
+                                          b.shape[1]), path=path)
     return out
+
+
+# One launch of the folded Karatsuba's kernel on CUDA tensors, counted
+# under ``mcim_fold_karatsuba``.
+@torch.library.custom_op("repro_torch::mcim_fold_karatsuba_kernel",
+                         mutates_args=())
+def mcim_fold_karatsuba_kernel(a: torch.Tensor, b: torch.Tensor
+                               ) -> torch.Tensor:
+    name = "mcim_fold_karatsuba"
+    _checked(name, a, b)
+    out = _empty_product(a, b)
+    if out.shape[0] == 0:
+        return out
+    fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 3)
+    _build.launch(name, fn, (a, b, out), (a.shape[0], a.shape[1],
+                                          b.shape[1]))
+    return out
+
+
+@mcim_fold_kernel.register_fake
+def _(a, b, *, schedule, path):
+    return _empty_product(a, b)
+
+
+@mcim_fold_karatsuba_kernel.register_fake
+def _(a, b):
+    return _empty_product(a, b)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import fold_geometry, mcim_fold_mul
+from .kernel import fold_geometry, fold_launch_plan, mcim_fold_mul
 
 _TILES = (512, 256, 128, 64, 32, 16, 8)
 
@@ -32,6 +32,39 @@ def big_mul(a: torch.Tensor, b: torch.Tensor, ct: int = 2,
     if a.ndim == 1:
         return big_mul(a[None], b[None], ct=ct, schedule=schedule)[0]
     return mcim_fold_mul(a, b, ct=ct, schedule=schedule)
+
+
+def launch_contract(la: int, lb: int, ct: int, schedule: str = "fb",
+                    batch: int = 256):
+    """Static :class:`~repro_torch.kernels.introspect.LaunchContract`.
+
+    Declares the launch :func:`big_mul` issues for a ``batch`` of (LA,
+    LB) multiplications (unpadded: the kernels mask the row edge): FB
+    and FF on the path :func:`.kernel.fold_launch_plan` takes for
+    aligned operands, the folded Karatsuba (``ct`` is 3) on its
+    per-thread kernel of N = max(LA, LB) rounded up to even limbs.
+    """
+    from repro_torch.kernels import introspect
+    run_ct = 3 if schedule == "karatsuba" else ct
+    geo = fold_geometry(la, lb, run_ct, schedule)
+    if schedule == "karatsuba":
+        n = geo.scratch_width // 2
+        path, kernel = "per_thread", "mcim_fold_karatsuba_launch"
+        ops = introspect.kara_row_ops(n)
+    else:
+        path = fold_launch_plan(batch, la, lb, True)
+        kernel = ("mcim_fold_bulk_launch" if path == "bulk"
+                  else "mcim_fold_launch")
+        ops = introspect.ops_per_row(f"mcim_fold_{schedule}", la, lb,
+                                     ct_run=geo.ct_run, chunk=geo.chunk)
+    return introspect.row_tile_contract(
+        name=(f"mcim_fold/{schedule}[la={la},lb={lb},ct={run_ct},"
+              f"batch={batch}]"),
+        lib="mcim_fold", kernel=kernel, path=path, n_inst=1, rows=batch,
+        la=la, lb=lb, launch_args=(batch, la, lb),
+        operands={"a": introspect.Operand((batch, la), "int32"),
+                  "b": introspect.Operand((batch, lb), "int32")},
+        out_shape=(batch, la + lb), ops=batch * ops)
 
 
 def vmem_bytes_per_step(la: int, lb: int, ct: int, tile_b: int,

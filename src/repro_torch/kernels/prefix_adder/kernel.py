@@ -5,7 +5,8 @@ whose TPU kernel ``_adder_kernel`` is hand-written CUDA in
 ``csrc/prefix_adder.cu`` here.  :func:`prefix_final_adder` launches it
 for a CUDA tensor and runs :func:`prefix_final_adder_ref`, the core
 library's sequential 1CA, for a CPU tensor; nothing else selects between
-them.
+them.  The launch is the custom op ``repro_torch::prefix_adder_kernel``,
+whose fake version gives the limbs' shape from the columns' alone.
 
 Columns are the port's carry-save dtype, ``torch.int64``, holding the
 reference's uint32 column values.  Both versions are exact mod
@@ -39,6 +40,13 @@ def prefix_final_adder(cols: torch.Tensor, *, tile_b: int = 256
         raise ValueError(f"tile_b must be positive, got {tile_b}")
     if cols.device.type == "cpu":
         return prefix_final_adder_ref(cols)
+    return prefix_adder_kernel(cols)
+
+
+# One launch of the prefix adder on (B, W) int64 CUDA columns.
+@torch.library.custom_op("repro_torch::prefix_adder_kernel",
+                         mutates_args=())
+def prefix_adder_kernel(cols: torch.Tensor) -> torch.Tensor:
     _build.check_cuda_operands("prefix_adder", cols, dtype=L.COL_DTYPE)
     if cols.ndim != 2:
         raise ValueError(f"prefix_adder: expected (B, W) columns, got "
@@ -53,3 +61,8 @@ def prefix_final_adder(cols: torch.Tensor, *, tile_b: int = 256
     fn = _build.launcher("prefix_adder", "prefix_adder_launch", 2, 2)
     _build.launch("prefix_adder", fn, (cols, out), (bsz, width))
     return out
+
+
+@prefix_adder_kernel.register_fake
+def _(cols):
+    return cols.new_empty(cols.shape, dtype=L.LIMB_DTYPE)

@@ -1,7 +1,7 @@
 """repro_torch.verify: static design verification -- no execution required.
 
-The plan-time gate of the port, a copy of the reference package's
-``verify`` gate:
+The plan-time gate of the port, the counterpart of the reference
+package's ``verify`` gate:
 
   * :mod:`.intervals`  -- abstract interpretation of the limb pipeline:
     every uint32 carry-save column provably stays below 2**32, for the
@@ -11,36 +11,50 @@ The plan-time gate of the port, a copy of the reference package's
   * :mod:`.contracts`  -- schedule contracts: partial-product coverage
     (each a_i*b_j exactly once, Karatsuba combine as a polynomial
     identity), scratch/out widths vs the proven requirement, Plan
-    throughput sums, scheduler determinism/completeness, and the
-    static-shape checks of ``Bank`` that need no tracer.
+    throughput sums, scheduler determinism/completeness, and bank
+    dispatch staticness on fake tensors (``FakeTensorMode``);
+  * :mod:`.dataflow`   -- static proofs of every CUDA launch a plan
+    implies, from the kernel packages' launch contracts
+    (:mod:`repro_torch.kernels.introspect`): conformance to the
+    launchers' arithmetic, hazard freedom over the output rows and the
+    fused dispatch's gather and read-back maps, block and window
+    bounds, the shared-memory model and budget, and a static
+    bytes/operations roofline per launch;
+  * :mod:`.lint`       -- AST pass over the port's source flagging host
+    syncs on the bank round's tensors, non-static scheduler state,
+    environment reads outside a stated allow-list, fallbacks that hide
+    a kernel, and imports of the reference or jax.
 
-``designs.generate``, ``designs.compile_plan`` and ``autotune.search``
-call :func:`assert_plan` at plan time, so a design that cannot be
-proven safe errors before it ever executes; the port refuses the plans
-the reference refuses, with the same violations.
-
-Not ported: the reference's jaxpr-level analyzers (``dataflow``,
-``jaxpr_walk``, ``vmem``) and its AST ``lint``, which check jaxprs and
-Pallas launches.
+``python -m repro_torch.verify`` sweeps the design registry plus the
+autotuner's enumeration vocabulary and writes
+``VERIFY_torch_report.json``.  ``designs.generate`` and
+``designs.compile_plan`` call :func:`assert_plan` and then
+:func:`assert_plan_dataflow` at plan time (``autotune.search`` the
+first), so a design that cannot be proven safe errors before it ever
+executes; the port refuses the plans the reference's ``assert_plan``
+refuses, with the same violations.
 """
 from __future__ import annotations
 
 import functools
 
-from . import intervals, contracts
+from . import intervals, contracts, lint
 from .intervals import IntervalReport, Violation, analyze
 from .contracts import (check_coverage, check_widths, check_throughput,
                         check_fused_schedule, check_fused_widths,
                         check_fused_plan, check_all_schedulers,
                         check_bank_static)
+from .lint import lint_tree, lint_source
 
 __all__ = [
-    "intervals", "contracts",
-    "IntervalReport", "Violation", "VerificationError",
+    "intervals", "contracts", "lint", "dataflow",
+    "IntervalReport", "Violation", "VerificationError", "DataflowError",
     "analyze", "check_coverage", "check_widths", "check_throughput",
     "check_fused_schedule", "check_fused_widths", "check_fused_plan",
     "check_all_schedulers", "check_bank_static",
+    "lint_tree", "lint_source",
     "verify_instance", "verify_plan", "assert_plan", "verify_design",
+    "verify_plan_dataflow", "assert_plan_dataflow",
 ]
 
 #: substrates swept per instance (kernel skipped for signed configs,
@@ -62,6 +76,19 @@ class VerificationError(ValueError):
         super().__init__(
             f"{len(lines)} verification violation(s):\n  " +
             "\n  ".join(lines))
+
+
+class DataflowError(VerificationError):
+    """A CUDA launch the dataflow analyzer cannot prove safe.
+
+    Raised by :func:`assert_plan_dataflow`: a hazard, bounds, shared
+    memory or window-table finding on the launches a plan implies.
+    """
+
+
+# after DataflowError, as in the reference
+from . import dataflow                              # noqa: E402
+from .dataflow import verify_plan_dataflow          # noqa: E402
 
 
 @functools.lru_cache(maxsize=4096)
@@ -110,6 +137,24 @@ def assert_plan(bits_a: int, bits_b: int, configs,
     violations = verify_plan(bits_a, bits_b, configs, throughput)
     if violations:
         raise VerificationError(violations)
+
+
+def assert_plan_dataflow(bits_a: int, bits_b: int, configs,
+                         budget=None) -> None:
+    """Raise :class:`DataflowError` unless every launch proves safe.
+
+    The fourth plan-time gate: analyzes (never executes) the
+    per-instance and fused CUDA launches the plan implies and rejects
+    hazards, out-of-bounds spans and windows, launches that depart from
+    their launchers' arithmetic, and shared-memory model/budget breaks.
+    Results are cached per distinct launch geometry inside
+    :mod:`.dataflow`, so repeated gating is cheap.
+    """
+    violations = dataflow.verify_plan_dataflow(bits_a, bits_b,
+                                               tuple(configs),
+                                               budget=budget)
+    if violations:
+        raise DataflowError(violations)
 
 
 def verify_design(design) -> tuple:

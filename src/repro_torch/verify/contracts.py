@@ -395,37 +395,45 @@ def check_all_schedulers(cases=SCHEDULER_CASES) -> list:
 # ---------------------------------------------------------- bank statics
 
 def check_bank_static(plan, bits_a: int, bits_b: int,
-                      backend: str = "core", batch: int = 8) -> list:
-    """The static-shape checks of ``Bank`` that need no tracer.
+                      backend: str = "core", batch: int = 8,
+                      device="cpu") -> list:
+    """Prove ``Bank.dispatch_fn`` is a function of static shapes only.
 
-    Builds ``Bank(..., device="cpu")``, runs ``dispatch_fn(batch)`` on a
-    zero batch of the static shape and checks the output is
-    ``(batch, la + lb)``, and checks two independent schedule calls give
-    the same assignment (the gather indices a dispatch closes over).
-
-    What it does not prove: the reference traces the dispatch under
-    ``jax.eval_shape`` with abstract values that carry no data, which
-    shows no Python control flow read an operand value.  PyTorch has no
-    such tracer here, so this check runs concrete zeros and cannot see a
-    branch on operand values.
+    The dispatch closure is built concretely on ``device``, its gather
+    and read-back index tensors real, as the bank builds it; it then
+    runs on *fake* operands of the static shape under
+    ``FakeTensorMode``: tensors that carry shape, dtype and device but
+    no data.  Success means no Python control flow inspected operand
+    values (a branch on one raises ``DataDependentOutputException``)
+    and the output shape is the full product batch.  On ``"cuda"`` the
+    "kernel" and "fused" backends reach their custom ops' fake versions,
+    so the CUDA route is proved too; on the CPU every backend runs its
+    plain versions.  Assignment determinism across calls is checked via
+    the scheduler contract; here we additionally diff the gather indices
+    two independently-built dispatches close over.
     """
     import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.core.bank import Bank
     where = f"bank[{plan.describe()}] backend={backend}"
     try:
-        bank = Bank(plan, bits_a, bits_b, backend=backend, device="cpu")
+        bank = Bank(plan, bits_a, bits_b, backend=backend, device=device)
+        run = bank.dispatch_fn(batch)
     except Exception as e:                         # noqa: BLE001
         return [Violation("contracts", "bank-construct", where, repr(e))]
     out = []
-    a = torch.zeros((batch, bank.la), dtype=L.LIMB_DTYPE)
-    b = torch.zeros((batch, bank.lb), dtype=L.LIMB_DTYPE)
     try:
-        shape = tuple(bank.dispatch_fn(batch)(a, b).shape)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            a = torch.empty((batch, bank.la), dtype=L.LIMB_DTYPE,
+                            device=bank.device)
+            b = torch.empty((batch, bank.lb), dtype=L.LIMB_DTYPE,
+                            device=bank.device)
+            shape = tuple(run(a, b).shape)
     except Exception as e:                         # noqa: BLE001
         return out + [Violation(
-            "contracts", "bank-dispatch-failed", where,
-            f"dispatch_fn failed on a zero batch of the static shape: "
-            f"{e!r}")]
+            "contracts", "bank-not-traceable", where,
+            f"dispatch_fn failed under FakeTensorMode (operand-value "
+            f"dependence or tracer leak): {e!r}")]
     if shape != (batch, bank.la + bank.lb):
         out.append(Violation(
             "contracts", "bank-out-shape", where,

@@ -340,3 +340,97 @@ def test_signed_wrapper_proves_safe():
 def test_bank_dispatch_is_static(backend, tp):
     plan = TP.plan_throughput(32, 32, Fraction(tp))
     assert TCo.check_bank_static(plan, 32, 32, backend=backend) == []
+
+
+@pytest.mark.parametrize("backend", ["core", "kernel", "fused"])
+@pytest.mark.parametrize("tp", ["7/2", "5/6", "1/3"])
+def test_bank_dispatch_runs_on_fake_tensors(backend, tp, monkeypatch):
+    """The dispatch check feeds the concrete closure fake operands (no
+    data): what it proves holds for any operand values."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from repro_torch.core.bank import Bank
+    seen = []
+    real = Bank.dispatch_fn
+
+    def spy(self, batch):
+        run = real(self, batch)
+
+        def wrapped(a, b):
+            out = run(a, b)
+            seen.append((type(a), type(out), tuple(out.shape)))
+            return out
+        return wrapped
+    monkeypatch.setattr(Bank, "dispatch_fn", spy)
+    plan = TP.plan_throughput(32, 32, Fraction(tp))
+    assert TCo.check_bank_static(plan, 32, 32, backend=backend,
+                                 batch=40) == []
+    assert seen == [(FakeTensor, FakeTensor, (40, 4))]
+
+
+def test_bank_dispatch_reading_an_operand_value_is_not_traceable(
+        monkeypatch):
+    """A dispatch that branches on an operand's value (the data-dependent
+    route the reference's eval_shape refuses) is ``bank-not-traceable``,
+    with the reference's wording."""
+    from repro_torch.core.bank import Bank
+    real = Bank.dispatch_fn
+
+    def branching(self, batch):
+        run = real(self, batch)
+
+        def wrapped(a, b):
+            if (a[:, -1] > 0x7FFF).any():       # a sign-dependent route
+                return run(b, a)
+            return run(a, b)
+        return wrapped
+    monkeypatch.setattr(Bank, "dispatch_fn", branching)
+    plan = TP.plan_throughput(32, 32, Fraction(7, 2))
+    for backend in ("core", "kernel", "fused"):
+        got = TCo.check_bank_static(plan, 32, 32, backend=backend)
+        assert [v.rule for v in got] == ["bank-not-traceable"]
+        assert "operand-value dependence or tracer leak" in got[0].detail
+        assert "DataDependentOutputException" in got[0].detail
+
+
+def test_custom_ops_fake_versions_give_the_kernels_outputs():
+    """Each kernel's custom op, called under ``FakeTensorMode``, gives
+    its kernel's output shape and dtype from the input shapes alone
+    (and launches nothing)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import (_build, bank_fold, int8_matmul,
+                                     karatsuba_ppm, mcim_fold, prefix_adder)
+    before = _build.launch_counts()
+    i32, i64, i8 = torch.int32, torch.int64, torch.int8
+    with FakeTensorMode():
+        def e(*shape, dtype=i32):
+            return torch.empty(shape, dtype=dtype)
+        cases = [
+            (bank_fold.fused_bank_mul_kernel(e(3, 40, 2), e(3, 40, 5),
+                                             e(3, 2, 2), path="auto"),
+             (3, 40, 7), i32),
+            (mcim_fold.mcim_fold_kernel(e(33, 4), e(33, 4), schedule="ff",
+                                        path="bulk"), (33, 8), i32),
+            (mcim_fold.mcim_fold_karatsuba_kernel(e(9, 3), e(9, 5)),
+             (9, 8), i32),
+            (prefix_adder.prefix_adder_kernel(e(17, 12, dtype=i64)),
+             (17, 12), i32),
+            (karatsuba_ppm.karatsuba_ppm_kernel(e(5, 6), e(5, 6),
+                                                path="auto"), (5, 12), i32),
+            (int8_matmul.int8_matmul_kernel(
+                e(7, 32, dtype=i8), e(32, 48, dtype=i8),
+                e(7, dtype=torch.float32), e(48, dtype=torch.float32),
+                path="auto"), (7, 48), torch.bfloat16),
+            (int8_matmul.int8_matmul_kernel(
+                e(7, 32, dtype=i8), e(32, 48, dtype=i8),
+                e(7, dtype=torch.float32), e(48, dtype=torch.float32),
+                path="mma_sync", out_dtype=torch.float32), (7, 48),
+             torch.float32),
+        ]
+    for out, shape, dtype in cases:
+        assert tuple(out.shape) == shape and out.dtype == dtype
+    assert _build.launch_counts() == before
+    for name in ("fused_bank_mul_kernel", "mcim_fold_kernel",
+                 "mcim_fold_karatsuba_kernel", "prefix_adder_kernel",
+                 "karatsuba_ppm_kernel", "int8_matmul_kernel"):
+        assert hasattr(torch.ops.repro_torch, name)
