@@ -238,6 +238,18 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    custom ops, beside their figures before, and the custom op's host cost a
    call against the raw launch it wraps.
    Phase 2's bounds are the gate's roofline of each launch's contract.
+14. The examples on the card: each ``examples_torch/*.py`` run through
+   ``runpy.run_path(..., run_name="__main__")`` in this process at the
+   reference's own sizes (``sharded_bank`` over two cards when there are
+   two, else ``--devices cuda:0,cuda:0``; ``train_e2e`` with
+   ``--preset-100m``, the reference's full-size flag), the launch
+   counters read around each run: ``quickstart``,
+   ``fractional_throughput`` and ``sharded_bank`` must launch
+   ``bank_fold`` once a fused round and nothing else; then
+   ``python3 examples_torch/quickstart.py`` once as a user types it, in a
+   subprocess with a time limit.  Each script's wall time is printed
+   beside the card's name and power limit; the phase's budget is
+   ``EXAMPLES_BUDGET_S``.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -257,6 +269,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -3738,6 +3751,99 @@ def phase_gate(device, smi, rounds):
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
 
+EXAMPLES_BUDGET_S = 120
+EXAMPLES_LIMIT_S = 300                 # the subprocess run of quickstart
+#: the examples in the reference's order -> whether they run fused rounds
+EXAMPLES = {"quickstart": True, "fractional_throughput": True,
+            "sharded_bank": True, "exact_determinism": False,
+            "serve_quant": False, "train_e2e": False}
+
+
+def run_example(name, argv):
+    """Run ``examples_torch/<name>.py`` as ``__main__`` in this process;
+    returns (wall s, fused rounds, launches by kernel)."""
+    import runpy
+    from repro_torch.core.bank import engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    path = ROOT / "examples_torch" / f"{name}.py"
+    rounds = [0]
+    execute = engine.Bank.execute
+
+    def counted(bank, a, b):
+        if bank.backend == "fused" and a.ndim == 2 and a.shape[0]:
+            rounds[0] += 1                  # a fused round of >= 1 op
+        return execute(bank, a, b)
+
+    saved_argv = sys.argv
+    sys.argv, engine.Bank.execute = [str(path), *argv], counted
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        runpy.run_path(str(path), run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv, engine.Bank.execute = saved_argv, execute
+    return time.perf_counter() - t0, rounds[0], launch_counts()
+
+
+def phase_examples(smi):
+    """Phase 14: the user entry points, ``examples_torch/``, on the card.
+    The subprocess run of ``quickstart`` starts first and runs beside the
+    in-process ones."""
+    t0 = time.perf_counter()
+    print(f"phase 14: the examples on the card [{smi}]")
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=work)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = tempfile.mkdtemp(dir=work)
+    cards = ("cuda:0,cuda:1" if torch.cuda.device_count() > 1
+             else "cuda:0,cuda:0")
+    user = subprocess.Popen(
+        [sys.executable, "examples_torch/quickstart.py"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ran = {}
+
+    def wait_user():                # its own wall time, read on its exit
+        ran["out"], ran["err"] = user.communicate(timeout=EXAMPLES_LIMIT_S)
+        ran["s"] = time.perf_counter() - t0
+
+    waiter = threading.Thread(target=wait_user, daemon=True)
+    waiter.start()
+    args = {"sharded_bank": ["--devices", cards],
+            "train_e2e": ["--preset-100m", "--checkpoint-dir", ckpt]}
+    try:
+        for name, fused in EXAMPLES.items():
+            argv = args.get(name, [])
+            wall, rounds, counts = run_example(name, argv)
+            launched = {k: v for k, v in counts.items() if v}
+            if fused:
+                check(rounds > 0 and launched == {"bank_fold": rounds},
+                      f"{name}: {launched} launches for {rounds} fused "
+                      f"rounds")
+            print(f"  {name} {' '.join(argv)}: {wall:.2f} s, {rounds} "
+                  f"fused rounds, launches {launched} [{smi}]")
+        waiter.join(max(1.0, EXAMPLES_LIMIT_S - (time.perf_counter() - t0)))
+        check("s" in ran, f"quickstart as a user runs it: not done in "
+              f"{EXAMPLES_LIMIT_S} s")
+        check(user.returncode == 0, f"quickstart as a user runs it: "
+              f"{ran['err'][-2000:]}")
+        check(ran["out"].rstrip().endswith("bit-exactly: True"),
+              f"quickstart printed {ran['out'][-500:]}")
+        print(f"  python3 examples_torch/quickstart.py (a process of its "
+              f"own, beside the others): {ran['s']:.2f} s [{smi}]")
+    finally:
+        if user.poll() is None:
+            user.kill()
+            waiter.join()
+            user.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE"),
+                      ignore_errors=True)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s (budget "
+          f"{EXAMPLES_BUDGET_S} s)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3760,6 +3866,7 @@ def main():
     phase_mesh(smi)
     phase_serve_mesh(smi)
     phase_gate(device, smi, rounds)
+    phase_examples(smi)
     for e in entries:
         counter = e.pop("counter")
         counts = (fused_counts if counter == "bank_fold" else entry_counts

@@ -21,11 +21,11 @@ from . import timing_model
 from . import power_model
 from . import planner
 from . import bank
-from .bank import Bank, BankReport
+from .bank import Bank, BankReport, sharded_execute
 
 __all__ = [
     "limbs", "area_model", "timing_model", "power_model", "planner", "bank",
-    "Bank", "BankReport",
+    "Bank", "BankReport", "sharded_execute",
     "MCIMConfig", "mcim_mul", "make_multiplier", "mul32x32_64",
     "star_mul", "feedback_mul", "feedforward_mul",
     "karatsuba_mul", "karatsuba_ppm",

@@ -14,10 +14,10 @@ from .schedule import (Scheduler, RoundRobinScheduler, GreedyScheduler,
                        streaming_schedule, uniform_arrivals,
                        completion_cycles, latency_histogram,
                        histogram_percentile)
-from .backends import (InstanceBackend, CAPABILITIES,
+from .backends import (InstanceBackend, BACKENDS, CAPABILITIES,
                        register_backend, get_backend, registered_backends,
                        cached_mul)
-from .engine import Bank, BankReport, InstanceReport
+from .engine import Bank, BankReport, InstanceReport, execute, last_report
 from .sharded import sharded_execute, sharded_report
 
 __all__ = [
@@ -26,8 +26,8 @@ __all__ = [
     "get_scheduler", "round_robin_schedule", "greedy_schedule",
     "streaming_schedule", "uniform_arrivals",
     "completion_cycles", "latency_histogram", "histogram_percentile",
-    "InstanceBackend", "CAPABILITIES", "register_backend",
+    "InstanceBackend", "BACKENDS", "CAPABILITIES", "register_backend",
     "get_backend", "registered_backends", "cached_mul",
-    "Bank", "BankReport", "InstanceReport",
+    "Bank", "BankReport", "InstanceReport", "execute", "last_report",
     "sharded_execute", "sharded_report",
 ]

@@ -25,6 +25,8 @@ from ..mcim import MCIMConfig, mcim_mul
 from repro_torch.kernels import bank_fold, mcim_fold
 
 CAPABILITIES = ("core", "kernel", "fused")
+#: the reference's name for the capabilities
+BACKENDS = CAPABILITIES
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,7 @@ issues work to the silicon bank.  The engine is
 from __future__ import annotations
 
 import dataclasses
+import functools
 from fractions import Fraction
 
 import torch
@@ -189,8 +190,8 @@ class Bank:
     def launch_count(self, batch: int) -> int:
         """Hand-written kernel launches one bank round issues for this
         batch size: 1 on "fused", one per busy instance on "kernel", 0 on
-        the plain PyTorch "core" path."""
-        if self.backend == "core":
+        the plain PyTorch "core" path and for an empty round."""
+        if self.backend == "core" or batch == 0:
             return 0
         if self.backend == "fused":
             return 1
@@ -235,3 +236,43 @@ class Bank:
         return (f"Bank[{self.plan.describe()}  backend={self.backend}  "
                 f"scheduler={self.scheduler.name}  "
                 f"{len(self.instances)} instances  device={self.device}]")
+
+
+# ------------------------------------------------------------------ module API
+
+@functools.lru_cache(maxsize=64)
+def _bank_for(plan: Plan, bits_a: int, bits_b: int, backend: str,
+              scheduler: str, device: torch.device) -> Bank:
+    return Bank(plan, bits_a, bits_b, backend=backend, scheduler=scheduler,
+                device=device)
+
+
+def _operand_bank(plan: Plan, a, b, backend: str, scheduler: str) -> Bank:
+    """The cached bank for the operands' limb counts, on their device."""
+    la = a.shape[-1] if a.ndim > 1 else a.shape[0]
+    lb = b.shape[-1] if b.ndim > 1 else b.shape[0]
+    return _bank_for(plan, la * L.RADIX_BITS, lb * L.RADIX_BITS, backend,
+                     scheduler, a.device)
+
+
+def execute(plan: Plan, a: torch.Tensor, b: torch.Tensor, *,
+            backend: str = "core",
+            scheduler: str = "round_robin") -> torch.Tensor:
+    """One-shot bank execution: dispatch a batch across ``plan``'s
+    instances and return the (B, LA+LB) int32 limb products.
+
+    Operand bit widths are taken from the limb counts, and the bank runs
+    on the operands' device.  Banks are cached per (plan, widths,
+    backend, scheduler, device), so repeated calls re-use the dispatch.
+    Use ``last_report(plan, a, b)`` -- or a ``Bank`` object directly --
+    for the cycle accounting.
+    """
+    return _operand_bank(plan, a, b, backend, scheduler).execute(a, b)
+
+
+def last_report(plan: Plan, a: torch.Tensor, b: torch.Tensor, *,
+                backend: str = "core",
+                scheduler: str = "round_robin") -> BankReport:
+    """Cycle-accounting report for the batch shape of (a, b)."""
+    batch = a.shape[0] if a.ndim > 1 else 1
+    return _operand_bank(plan, a, b, backend, scheduler).report(batch)

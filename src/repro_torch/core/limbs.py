@@ -161,6 +161,13 @@ def ppm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cols
 
 
+def ppm_op_count(la: int, lb: int) -> int:
+    """Number of 16x16 limb products a PPM of this size instantiates.
+
+    This is the area proxy for the PPM stage (see core.area_model)."""
+    return la * lb
+
+
 # ---------------------------------------------------------------------------
 # Compressor: carry-save addition of column-sum vectors.
 # ---------------------------------------------------------------------------

@@ -14,5 +14,11 @@ launches (:mod:`.introspect`) for the plan-time gate
 (:mod:`repro_torch.verify.dataflow`).
 """
 from ._build import launch_counts, reset_launch_counts
+from . import mcim_fold
+from . import bank_fold
+from . import int8_matmul
+from . import karatsuba_ppm
+from . import prefix_adder
 
-__all__ = ["launch_counts", "reset_launch_counts"]
+__all__ = ["launch_counts", "reset_launch_counts", "mcim_fold", "bank_fold",
+           "int8_matmul", "karatsuba_ppm", "prefix_adder"]

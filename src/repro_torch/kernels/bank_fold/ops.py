@@ -125,6 +125,12 @@ def make_fused_dispatch(assign, configs, la: int, lb: int, batch: int, *,
     if len(assign) != n_inst:
         raise ValueError(
             f"assignment covers {len(assign)} instances, plan has {n_inst}")
+    if batch == 0:
+        # an empty round: no op 0 to pad with, and nothing to launch
+        def run(a, b):
+            return torch.empty((0, la + lb), dtype=torch.int32,
+                               device=a.device)
+        return run
     rows, _ = fused_block_rows(assign)
     # padded rows re-fetch op 0 (computed, never read back)
     gather, source = fused_dispatch_maps(assign, rows, batch)

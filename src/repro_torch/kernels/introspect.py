@@ -110,6 +110,12 @@ class LaunchContract:
     idle_steps: tuple = ()         # masked (instance, step) pairs
     meta: Mapping = dataclasses.field(default_factory=dict)
 
+    def matches_idle(self, step: tuple) -> bool:
+        """Whether ``step`` is declared architecturally idle (a ``None``
+        in a declared pair matches any value)."""
+        return any(all(p is None or p == s for p, s in zip(pat, step))
+                   for pat in self.idle_steps)
+
     @property
     def shape_symbol(self) -> str:
         """The launcher's ``*_launch_shape`` entry."""

@@ -5,7 +5,9 @@ runtime state's sharding rules (:mod:`.sharding`), and the dry run
 stand-in for the reference's ``hlo_cost``) and the H100 roofline
 (:mod:`.roofline`).
 """
+from .mesh import make_production_mesh, make_host_mesh, data_axes
 from . import dryrun, mesh, op_cost, roofline, serve, sharding, train
 
-__all__ = ["dryrun", "mesh", "op_cost", "roofline", "serve", "sharding",
+__all__ = ["make_production_mesh", "make_host_mesh", "data_axes",
+           "dryrun", "mesh", "op_cost", "roofline", "serve", "sharding",
            "train"]

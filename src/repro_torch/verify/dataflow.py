@@ -503,7 +503,10 @@ def plan_static_stats(bits_a: int, bits_b: int, configs, batch=None,
 def round_contract(bits_a: int, bits_b: int, configs, batch: int,
                    scheduler="round_robin"):
     """The fused launch of one bank round of ``batch`` ops, assigned by
-    ``scheduler`` as ``Bank.dispatch_fn`` assigns them."""
+    ``scheduler`` as ``Bank.dispatch_fn`` assigns them; ``None`` for an
+    empty round, which launches nothing."""
+    if batch == 0:
+        return None
     from repro_torch.core import limbs as L
     from repro_torch.core.bank.schedule import get_scheduler
     from repro_torch.kernels import bank_fold

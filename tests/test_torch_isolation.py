@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no jax, nothing of the reference package.
 
-``src/repro_torch/**.py``, ``chip_smoke.py``,
+``src/repro_torch/**.py``, ``examples_torch/*.py``, ``chip_smoke.py``,
 ``scripts/row_tiles_bench.py``, ``scripts/decode_drift.py``,
 ``scripts/train_aten_calls.py``, ``scripts/gloo_cuda_probe.py`` and
 ``scripts/profiler_probe.py`` (all run on a machine without jax) may
@@ -28,6 +28,9 @@ def _imported_roots(path):
 
 def test_no_jax_or_reference_imports_in_the_port():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert len(examples) == 6
+    files += examples
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "row_tiles_bench.py",
               ROOT / "scripts" / "decode_drift.py",
               ROOT / "scripts" / "train_aten_calls.py",

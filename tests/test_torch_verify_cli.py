@@ -8,6 +8,7 @@ import json
 
 import pytest
 
+import repro.designs.registry as RR
 import repro.verify as RV
 import repro.verify.__main__ as RM
 from repro_torch.verify import __main__ as TM
@@ -27,6 +28,10 @@ def report(tmp_path_factory):
 @pytest.fixture
 def reference(monkeypatch):
     monkeypatch.setattr(RV, "assert_plan_dataflow", lambda *a, **k: None)
+    # the shipped registry only: a reference test run earlier in this
+    # process may have registered a scratch design ("_test_tmp")
+    monkeypatch.setattr(RR, "_REGISTRY", {
+        n: s for n, s in RR._REGISTRY.items() if not n.startswith("_")})
     return RM
 
 
