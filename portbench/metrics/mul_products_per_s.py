@@ -1,0 +1,6 @@
+"""Products returned by the window's mul calls, over the window's time (the
+time inside its calls)."""
+
+
+def read(rec):
+    return rec.items / rec.window_s

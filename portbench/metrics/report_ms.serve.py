@@ -1,0 +1,5 @@
+"""Host time in Bank.report per serve call (ms)."""
+
+
+def read(rec):
+    return rec.per_call_ms(rec.span_s("report"))
