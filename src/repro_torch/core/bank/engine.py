@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from fractions import Fraction
+from time import perf_counter
 
 import torch
 
@@ -26,6 +27,7 @@ from ..planner import Plan
 from .backends import CAPABILITIES, cached_mul, get_backend
 from .schedule import (completion_cycles, get_scheduler,
                        histogram_percentile, latency_histogram)
+from repro_torch import telemetry
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bank_fold import make_fused_dispatch
 
@@ -145,14 +147,18 @@ class Bank:
         bank's policy for this report only."""
         sched = self.scheduler if scheduler is None else \
             get_scheduler(scheduler)
+        t0 = perf_counter()
         assign, cycles = sched.schedule(self._cts, batch)
+        telemetry.span("bank.schedule", perf_counter() - t0)
         insts = tuple(
             InstanceReport(cfg, len(ops), len(ops) * cfg.ct)
             for cfg, ops in zip(self.instances, assign))
         arrivals = sched.arrivals_for(batch) \
             if hasattr(sched, "arrivals_for") else (0,) * batch
+        t0 = perf_counter()
         finish = completion_cycles(self._cts, assign, arrivals)
         hist = latency_histogram(f - a for f, a in zip(finish, arrivals))
+        telemetry.span("bank.latency", perf_counter() - t0)
         footprints = tuple(
             be.working_set(cfg, self.la, self.lb, self.tile_b)
             for cfg, be in zip(self.instances, self._backends))
@@ -228,7 +234,10 @@ class Bank:
         if fn is None:
             if len(self._compiled) >= self.MAX_COMPILED:
                 self._compiled.pop(next(iter(self._compiled)))
+            t0 = perf_counter()
             fn = self._compiled[batch] = self.dispatch_fn(batch)
+            telemetry.span("bank.dispatch_build", perf_counter() - t0)
+            telemetry.count("bank.dispatch_builds")
         self.last_report = self.report(batch)
         return fn(a, b)
 

@@ -33,7 +33,7 @@ from repro_torch.core.bank import (Bank, BankReport, StreamingScheduler,
                                    sharded_execute)
 from repro_torch.core.mcim import MCIMConfig
 from repro_torch.device import resolve_device
-from repro_torch import verify
+from repro_torch import telemetry, verify
 
 from .spec import DesignSpec, DesignError, TimingError, LatencyError
 
@@ -103,17 +103,19 @@ class CompiledDesign:
         Routes limb batches to the replicated sharded engine when the
         spec asked for replicas (the products come back on the operands'
         device), else to the single bank (operands on another device
-        than the bank's raise).
+        than the bank's raise).  Each call is one ``design.mul`` row of
+        :mod:`repro_torch.telemetry`.
         """
-        if isinstance(a, (int, np.integer)) and isinstance(b, (int,
-                                                               np.integer)):
-            return self._mul_ints(int(a), int(b))
-        if self.devices is not None:
-            return sharded_execute(self.plan, a, b, self.devices,
-                                   backend=self.bank.backend,
-                                   scheduler=self.spec.scheduler,
-                                   axis=self.spec.mesh_axis)
-        return self.bank.execute(a, b)
+        with telemetry.root("design.mul"):
+            if isinstance(a, (int, np.integer)) and \
+                    isinstance(b, (int, np.integer)):
+                return self._mul_ints(int(a), int(b))
+            if self.devices is not None:
+                return sharded_execute(self.plan, a, b, self.devices,
+                                       backend=self.bank.backend,
+                                       scheduler=self.spec.scheduler,
+                                       axis=self.spec.mesh_axis)
+            return self.bank.execute(a, b)
 
     def _mul_ints(self, a: int, b: int) -> int:
         enc_a = L.from_numpy(self._encode(a, self.spec.bits_a, self.la),
@@ -173,12 +175,15 @@ class CompiledDesign:
 
         Returns ``(report, responses)``: the
         :class:`~repro_torch.serving.ServingReport` and the per-request
-        ``{rid: Response}`` outcomes.
+        ``{rid: Response}`` outcomes.  Each call is one ``design.serve``
+        row of :mod:`repro_torch.telemetry`.
         """
         from repro_torch.serving import Worker
-        worker = Worker(self, replicas=replicas, round_cycles=round_cycles,
-                        steal=steal, autoscaler=autoscaler, check=check)
-        report = worker.run(requests)
+        with telemetry.root("design.serve"):
+            worker = Worker(self, replicas=replicas,
+                            round_cycles=round_cycles, steal=steal,
+                            autoscaler=autoscaler, check=check)
+            report = worker.run(requests)
         return report, worker.responses
 
     # --------------------------------------------------------- properties

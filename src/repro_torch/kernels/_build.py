@@ -8,11 +8,12 @@ the sources and flags, so an unchanged tree reuses them and an edited
 one rebuilds.  All sources are compiled in parallel, once per process,
 the first time any kernel is launched.
 
-This module also keeps the per-kernel launch counters: every wrapper
-launches through :func:`launch`, which adds one to its kernel's count
-there and nowhere else, and, for a kernel with two paths, to the count
-of the path it launched.  Nothing here sends a CUDA tensor to a plain
-path.
+Every wrapper launches through :func:`launch`, which counts the launch
+there and nowhere else, in :mod:`repro_torch.telemetry`'s counters
+``launch.<kernel>`` and, for a kernel with two paths,
+``launch.<kernel>.<path>``; :func:`launch_counts` and
+:func:`path_counts` read them.  Nothing here sends a CUDA tensor to a
+plain path.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from repro_torch import telemetry
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,14 +40,6 @@ MAX_LIMBS = 16
 
 _LIBS: dict = {}
 _FNS: dict = {}
-#: per-kernel launch counters (see module docstring)
-LAUNCHES = {"bank_fold": 0, "mcim_fold_fb": 0, "mcim_fold_ff": 0,
-            "mcim_fold_karatsuba": 0, "prefix_adder": 0, "karatsuba_ppm": 0,
-            "int8_matmul": 0}
-#: launches of the row-tile kernels by path (``kernels/_row_tiles.py``)
-PATH_LAUNCHES = {k: {"bulk": 0, "per_thread": 0}
-                 for k in ("bank_fold", "mcim_fold_fb", "mcim_fold_ff",
-                           "karatsuba_ppm")}
 
 
 def _nvcc() -> str:
@@ -153,9 +148,9 @@ def launch(kernel: str, fn, tensors, ints, path: str | None = None) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
-    LAUNCHES[kernel] += 1
+    telemetry.count(f"launch.{kernel}")
     if path is not None:
-        PATH_LAUNCHES[kernel][path] += 1
+        telemetry.count(f"launch.{kernel}.{path}")
     if err:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
@@ -183,17 +178,19 @@ def check_limbs(name: str, la: int, lb: int) -> None:
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for paths in PATH_LAUNCHES.values():
-        for p in paths:
-            paths[p] = 0
+    """Zero the launch counters, with the rest of the recorder's process
+    totals (:func:`repro_torch.telemetry.reset`)."""
+    telemetry.reset()
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    """Launches of each kernel since the last reset."""
+    counters = telemetry.totals()["counters"]
+    return {k: counters[f"launch.{k}"] for k in telemetry.KERNELS}
 
 
 def path_counts() -> dict:
     """Launches of the row-tile kernels by path since the last reset."""
-    return {k: dict(v) for k, v in PATH_LAUNCHES.items()}
+    counters = telemetry.totals()["counters"]
+    return {k: {p: counters[f"launch.{k}.{p}"] for p in paths}
+            for k, paths in telemetry.KERNEL_PATHS.items()}

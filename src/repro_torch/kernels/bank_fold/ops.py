@@ -21,9 +21,12 @@ construction.
 """
 from __future__ import annotations
 
+from time import perf_counter
+
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.mcim import signed_correction
 from repro_torch.kernels.mcim_fold import batch_tile
 from .geometry import super_geometry
@@ -139,7 +142,10 @@ def make_fused_dispatch(assign, configs, la: int, lb: int, batch: int, *,
     table = torch.from_numpy(sg.table()).to(device)
 
     def run(a, b):
-        prod = fused_bank_mul(a[gather], b[gather], table)
+        ga, gb = a[gather], b[gather]
+        t0 = perf_counter()
+        prod = fused_bank_mul(ga, gb, table)
+        telemetry.span("bank_fold.launch", perf_counter() - t0)
         out = prod.reshape(n_inst * rows, la + lb)[source]
         if signed:
             out = signed_correction(a, b, out)

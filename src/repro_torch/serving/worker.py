@@ -52,6 +52,7 @@ from fractions import Fraction
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.core import limbs as L
 from repro_torch.core.bank import Bank
 from repro_torch.core.bank.schedule import histogram_percentile, latency_histogram
@@ -302,6 +303,7 @@ class Worker:
 
     def _execute_round(self, rep: Replica, window_end: int) -> None:
         """Run every commit retiring inside the window as ONE bank round."""
+        t0 = time.perf_counter()
         due = []
         for q in rep.queues:
             while q and q[0].finish <= window_end:
@@ -316,10 +318,12 @@ class Worker:
         for k, c in enumerate(due):
             a[k] = c.req.a
             b[k] = c.req.b
+        packed = time.perf_counter() - t0
         # one copy to the bank's device, one synchronising copy back
         out = rep.bank.execute(L.from_numpy(a, rep.bank.device),
                                L.from_numpy(b, rep.bank.device))
         out = out.cpu().numpy()
+        t0 = time.perf_counter()
         self.rounds += 1
         self.max_round_batch = max(self.max_round_batch, n)
         for k, c in enumerate(due):
@@ -335,6 +339,9 @@ class Worker:
                 earliest_possible=c.earliest_possible,
                 issue=c.issue, finish=c.finish, replica=rep.index,
                 instance=c.instance, stolen=c.stolen, product=product)
+        telemetry.span("worker.round_host", packed + time.perf_counter() - t0)
+        telemetry.count("worker.rows", n)
+        telemetry.count("worker.bucket_rows", bucket)
 
     # -------------------------------------------------------- autoscaling
     def _autoscale(self, window_end: int, n_arrived: int,
@@ -380,11 +387,13 @@ class Worker:
                 i += 1
             # EDF among simultaneous arrivals: a tight-deadline request
             # in a burst claims its slot before lax ones
+            t_admit = time.perf_counter()
             batch.sort(key=lambda r: (r.arrival, r.deadline, r.rid))
             for req in batch:
                 self._admit(req)
             if self.steal and len(self._live()) > 1:
                 self._steal_pass(now)
+            telemetry.span("worker.admit", time.perf_counter() - t_admit)
             for rep in self.replicas:
                 self._execute_round(rep, window_end)
             self._retire_drained()

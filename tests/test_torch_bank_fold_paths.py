@@ -16,6 +16,7 @@ import itertools
 import pytest
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import _build
 from repro_torch.kernels import _row_tiles as RT
 from repro_torch.kernels import bank_fold as TB
@@ -204,9 +205,12 @@ def test_karatsuba_ppm_launch_plan_by_shape(n, rows, aligned):
 
 
 def test_path_counts_reset_with_the_launch_counts():
-    _build.PATH_LAUNCHES["bank_fold"]["bulk"] += 1
-    _build.PATH_LAUNCHES["mcim_fold_fb"]["per_thread"] += 1
-    _build.PATH_LAUNCHES["karatsuba_ppm"]["bulk"] += 1
+    for counter in ("launch.bank_fold", "launch.bank_fold.bulk",
+                    "launch.mcim_fold_fb.per_thread",
+                    "launch.karatsuba_ppm.bulk"):
+        telemetry.count(counter)
+    assert _build.path_counts()["bank_fold"]["bulk"] >= 1
+    assert _build.launch_counts()["bank_fold"] >= 1
     _build.reset_launch_counts()
     assert _build.path_counts() == {
         k: {p: 0 for p in RT.PATHS}

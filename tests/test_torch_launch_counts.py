@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch import designs as TD
+from repro_torch import telemetry
 from repro_torch.core import limbs as TL
 from repro_torch.kernels import _build
 from repro_torch.launch import roofline as TR
@@ -35,13 +36,13 @@ def test_plain_versions_on_the_cpu_launch_nothing():
     assert TR.count_kernel_launches(design.mul, a, a) == 0
 
 
-def test_a_launch_the_profiler_missed_raises(monkeypatch):
+def test_a_launch_the_profiler_missed_raises():
     """A blind profiler (no device events) must not pass for 0 launches:
     a wrapper's count that no device event matches raises."""
-    name = next(iter(_build.LAUNCHES))
+    name = next(iter(_build.launch_counts()))
 
     def unseen():
-        monkeypatch.setitem(_build.LAUNCHES, name, _build.LAUNCHES[name] + 1)
+        telemetry.count(f"launch.{name}")
     with pytest.raises(RuntimeError, match="saw 0 launches"):
         TR.count_kernel_launches(unseen)
 
