@@ -16,8 +16,11 @@ A span's parent is fixed by where the code calls it:
 ====================  ======================  =============================
 span / counter        parent                  what it measures
 ====================  ======================  =============================
-bank.schedule         Bank.report             the scheduler's pass
-bank.latency          Bank.report             completion cycles + histogram
+bank.schedule         Bank.report             the scheduler's pass, on a
+                                              report-cache miss
+bank.latency          Bank.report             completion cycles +
+                                              histogram, on such a miss
+bank.report_builds    Bank.report             (counter) such misses
 bank.dispatch_build   Bank.execute            a batch size's first dispatch
 bank.dispatch_builds  Bank.execute            (counter) such builds
 bank_fold.launch      fused dispatch ``run``  the custom op's host side
@@ -47,9 +50,10 @@ from array import array
 from operator import add
 from time import perf_counter
 
-#: rows kept: the last CAPACITY root calls (a 51 s serve window makes
-#: about 4,600)
-CAPACITY = 65_536
+#: rows kept: the last CAPACITY root calls, 392 bytes each (a 51 s serve
+#: window makes about 4,600; a 51 s bulk window about 55,000 at 32 bits,
+#: and up to 75,000 were a call only its round's 0.68 ms of device work)
+CAPACITY = 131_072
 ROOTS = ("design.mul", "design.serve")
 #: the kernels ``kernels._build.launch`` counts, and the paths of those
 #: with two (``kernels/_row_tiles.py``)
@@ -61,7 +65,8 @@ KERNEL_PATHS = {k: ("bulk", "per_thread")
                           "karatsuba_ppm")}
 SPANS = ROOTS + ("bank.schedule", "bank.latency", "bank.dispatch_build",
                  "bank_fold.launch", "worker.admit", "worker.round_host")
-COUNTERS = (("bank.dispatch_builds", "worker.rows", "worker.bucket_rows")
+COUNTERS = (("bank.report_builds", "bank.dispatch_builds", "worker.rows",
+             "worker.bucket_rows")
             + tuple(f"launch.{k}" for k in KERNELS)
             + tuple(f"launch.{k}.{p}" for k, paths in KERNEL_PATHS.items()
                     for p in paths))

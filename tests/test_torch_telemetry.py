@@ -75,9 +75,11 @@ def test_serve_counters_match_the_report(served):
     assert row.counters["worker.bucket_rows"] == sum(buckets)
     assert row.counters["bank.dispatch_builds"] == len(set(buckets)) \
         == row.spans["bank.dispatch_build"]
-    # every round reports once; the plain CPU path launches no kernel
-    assert row.spans["bank.schedule"] == row.spans["bank.latency"] \
-        == report.rounds
+    # every round asks for its report, built once a bucket size (the
+    # rest hit the bank's report cache); the plain CPU path launches no
+    # kernel
+    assert row.counters["bank.report_builds"] == len(set(buckets)) \
+        == row.spans["bank.schedule"] == row.spans["bank.latency"]
     assert row.spans["worker.admit"] >= report.rounds
     assert row.spans["bank_fold.launch"] == 0
     assert not any(v for k, v in row.counters.items()
@@ -115,10 +117,12 @@ def test_mul_rows_and_nested_roots():
     assert first.counters["bank.dispatch_builds"] == 1
     assert second.counters["bank.dispatch_builds"] == 0
     assert ints.counters["bank.dispatch_builds"] == 1   # batch 1
-    for r in (first, second, ints):
-        assert r.spans["bank.schedule"] == r.spans["bank.latency"] == 1
+    # a report is built once a batch size: 96 on the first call, 1 on the
+    # ints'; the second and the nested call hit the bank's report cache
+    for r, builds in zip(rows, (1, 0, 1, 0)):
+        assert r.counters["bank.report_builds"] == builds \
+            == r.spans["bank.schedule"] == r.spans["bank.latency"]
     assert outer.spans["design.mul"] == 1
-    assert outer.spans["bank.schedule"] == 1
     assert 0 < outer.seconds["design.mul"] <= outer.t1 - outer.t0
 
 
@@ -151,6 +155,8 @@ def test_spans_outside_a_root_reach_the_totals_only():
     assert after["spans"]["bank.schedule"] == \
         before["spans"]["bank.schedule"] + 1
     assert after["seconds"]["bank.latency"] > before["seconds"]["bank.latency"]
+    assert after["counters"]["bank.report_builds"] == \
+        before["counters"]["bank.report_builds"] + 1
     assert after["counters"]["bank.dispatch_builds"] == \
         before["counters"]["bank.dispatch_builds"] + 1
     assert after["counters"]["worker.rows"] == \
@@ -180,9 +186,12 @@ def test_an_exception_inside_execute_leaves_the_next_row_clean(monkeypatch):
     t1 = time.perf_counter()
     failed, clean = telemetry.calls(t0, t1)
     assert failed.spans["bank.dispatch_build"] == 1
+    assert failed.counters["bank.report_builds"] == 1   # before the raise
     assert clean.id == failed.id + 1 and clean.root == "design.mul"
     assert clean.spans["design.mul"] == 0         # not nested in the failed
-    assert clean.spans["bank.schedule"] == 1
+    # the report the failed call built is kept; the dispatch was cleared
+    assert clean.spans["bank.schedule"] == 0
+    assert clean.counters["bank.report_builds"] == 0
     assert clean.counters["bank.dispatch_builds"] == 1
 
 
