@@ -35,7 +35,7 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
    reference's operation count (5 operations a limb product); and FF and
    the int64 ``*`` are timed warm over 0.5-2 million 2-limb rows, where
    each falls out of the L2.
-3. The main path: for each of the 13 registry designs,
+3. The main path: for each of the 14 registry designs,
    ``repro_torch.designs.generate(name)`` (auto: the fused capability)
    multiplies B = 65,536 operand pairs at the design's full width,
    checked against the plain (core) bank on the card and the Python
@@ -500,12 +500,12 @@ def print_bulk_plans():
     """The bulk kernels' shapes as the CUDA source fixes them (threads,
     tile rows, stages, dynamic shared memory) and the blocks the card
     holds of each (the persistent grid)."""
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, _row_tiles
     device = torch.device("cuda", torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for lib, symbol, widths in (
-            ("bank_fold", "bank_fold_bulk_shape", (2, 4, 8, 16)),
-            ("mcim_fold", "mcim_fold_bulk_shape", (2, 4, 8, 16)),
+            ("bank_fold", "bank_fold_bulk_shape", _row_tiles.BULK_LIMBS),
+            ("mcim_fold", "mcim_fold_bulk_shape", _row_tiles.BULK_LIMBS),
             ("karatsuba_ppm", "karatsuba_ppm_bulk_shape", (2,))):
         fn = getattr(_build.library(lib), symbol)
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -900,7 +900,8 @@ def phase_main_path(device):
     from repro_torch.core import limbs as L
     from repro_torch.kernels import _build
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    print(f"phase 3: main path, 13 registry designs x B={B_MAIN}")
+    print(f"phase 3: main path, {len(designs.names())} registry designs x "
+          f"B={B_MAIN}")
     rng = np.random.default_rng(SEED + 1)
     inputs, plain = {}, {}
 
@@ -3612,7 +3613,8 @@ def gate_bank_fake(device):
     check(sum(launch_counts().values()) == before,
           "13b: the fake-tensor dispatch launched a kernel")
     print(f"  13b check_bank_static on fake {device} tensors: {checked} "
-          f"dispatches (13 designs x kernel, fused) at B={B_MAIN} clean, "
+          f"dispatches ({len(designs.names())} designs x kernel, fused) "
+          f"at B={B_MAIN} clean, "
           f"0 launches, {time.perf_counter() - t0:.2f} s")
 
 

@@ -28,9 +28,9 @@
 // pattern: its LA+LB 4-byte stores fall at a stride of LA+LB words
 // across a warp, so at 8 limbs a warp's store instruction touches 32
 // sectors for 128 bytes. The rows move as tiles instead (row_tiles.cuh):
-// * bank_fold_bulk_kernel (LA = LB = 2, 4, 8 or 16, 16-byte-aligned
-//   spans): a persistent grid (at 8 and 16 limbs two blocks an SM, at 2
-//   and 4 as many as fit); each block walks (instance, row tile) pairs,
+// * bank_fold_bulk_kernel (LA = LB = 2, 4, 8, 16 or 24, 16-byte-aligned
+//   spans): a persistent grid (from 8 limbs two blocks an SM, at 2 and 4
+//   as many as fit); each block walks (instance, row tile) pairs,
 //   a tile never crossing instances, so the weights are warp-uniform. A
 //   ring of stages holds the next tiles' A and B spans, brought in by
 //   1-D TMA bulk copies on mbarriers while the current tile computes.
@@ -44,7 +44,14 @@
 //   through shared memory with neighbouring threads on neighbouring
 //   words.
 // The host picks the path (kernels/_row_tiles.py `plan`); a launch the
-// bulk path cannot take returns cudaErrorInvalidValue.
+// bulk path cannot take returns cudaErrorInvalidValue, as does one of
+// rows wider than limbs::kMaxLimbs on either path.
+//
+// Rows of 24 limbs (BLS12-381's 381-bit field elements, 2 * 24 operand
+// limbs and 48 product limbs a thread) multiply column by column into
+// one 64-bit sum (tiles::schoolbook_by_columns) rather than into 48
+// uint32 columns beside 24 weights: fewer registers and a fifth of the
+// instructions, and the same bits.
 #include "row_tiles.cuh"
 
 namespace {
@@ -165,7 +172,8 @@ cudaError_t launch(const uint32_t* a, const uint32_t* b,
 
 }  // namespace
 
-// The coalesced path, any widths up to 16 limbs and any alignment.
+// The coalesced path, any widths up to limbs::kMaxLimbs and any
+// alignment.
 extern "C" int bank_fold_launch(const void* a, const void* b,
                                 const void* table, void* out, int n_inst,
                                 int rows, int la, int lb, int max_steps,
@@ -175,15 +183,17 @@ extern "C" int bank_fold_launch(const void* a, const void* b,
   auto* pt = static_cast<const int32_t*>(table);
   auto* po = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
   switch (limbs::bucket(la, lb)) {
     case 2: return launch<2>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
     case 4: return launch<4>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
     case 8: return launch<8>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
-    default: return launch<16>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
+    case 16: return launch<16>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
+    default: return launch<24>(pa, pb, pt, po, n_inst, rows, la, lb, max_steps, s);
   }
 }
 
-// The bulk path: LA = LB = 2, 4, 8 or 16 limbs, 16-byte-aligned
+// The bulk path: LA = LB = 2, 4, 8, 16 or 24 limbs, 16-byte-aligned
 // operands, rows * LA a multiple of 4.
 extern "C" int bank_fold_bulk_launch(const void* a, const void* b,
                                      const void* table, void* out,
@@ -200,6 +210,7 @@ extern "C" int bank_fold_bulk_launch(const void* a, const void* b,
     case 4: return launch_bulk<4>(pa, pb, pt, po, n_inst, rows, max_steps, s);
     case 8: return launch_bulk<8>(pa, pb, pt, po, n_inst, rows, max_steps, s);
     case 16: return launch_bulk<16>(pa, pb, pt, po, n_inst, rows, max_steps, s);
+    case 24: return launch_bulk<24>(pa, pb, pt, po, n_inst, rows, max_steps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -211,6 +222,7 @@ extern "C" int bank_fold_bulk_shape(int la, int* info) {
     case 4: return tiles::bulk_shape<4>(bank_fold_bulk_kernel<4>, info);
     case 8: return tiles::bulk_shape<8>(bank_fold_bulk_kernel<8>, info);
     case 16: return tiles::bulk_shape<16>(bank_fold_bulk_kernel<16>, info);
+    case 24: return tiles::bulk_shape<24>(bank_fold_bulk_kernel<24>, info);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -222,6 +234,7 @@ extern "C" int bank_fold_bulk_shape(int la, int* info) {
 // kernels/bank_fold/ops.py are held to them).
 extern "C" int bank_fold_launch_shape(int n_inst, int rows, int la, int lb,
                                       int max_steps, int* info) {
+  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
   tiles::tile_launch_shape(limbs::bucket(la, lb), n_inst, rows, la, lb,
                            info);
   return cudaSuccess;
@@ -233,7 +246,8 @@ extern "C" int bank_fold_attributes(int n_inst, int rows, int la, int lb,
     case 2: return tiles::attributes(bank_fold_kernel<2>, info);
     case 4: return tiles::attributes(bank_fold_kernel<4>, info);
     case 8: return tiles::attributes(bank_fold_kernel<8>, info);
-    default: return tiles::attributes(bank_fold_kernel<16>, info);
+    case 16: return tiles::attributes(bank_fold_kernel<16>, info);
+    default: return tiles::attributes(bank_fold_kernel<24>, info);
   }
 }
 
@@ -246,6 +260,7 @@ extern "C" int bank_fold_bulk_launch_shape(int n_inst, int rows, int la,
     case 4: return bulk_launch_at<4>(n_inst, rows, info);
     case 8: return bulk_launch_at<8>(n_inst, rows, info);
     case 16: return bulk_launch_at<16>(n_inst, rows, info);
+    case 24: return bulk_launch_at<24>(n_inst, rows, info);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -258,6 +273,7 @@ extern "C" int bank_fold_bulk_attributes(int n_inst, int rows, int la,
     case 4: return tiles::attributes(bank_fold_bulk_kernel<4>, info);
     case 8: return tiles::attributes(bank_fold_bulk_kernel<8>, info);
     case 16: return tiles::attributes(bank_fold_bulk_kernel<16>, info);
+    case 24: return tiles::attributes(bank_fold_bulk_kernel<24>, info);
     default: return cudaErrorInvalidValue;
   }
 }

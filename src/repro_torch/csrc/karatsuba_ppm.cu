@@ -76,8 +76,8 @@ cudaError_t bulk_launch_at(int bsz, int n, int* info) {
 
 }  // namespace
 
-// a, b: (bsz, n) limbs; out: (bsz, 2n) limbs; n even, 2 <= n <= 16; any
-// 4-byte alignment.
+// a, b: (bsz, n) limbs; out: (bsz, 2n) limbs; n even, 2 <= n <= 24
+// (limbs::kMaxLimbs); any 4-byte alignment.
 extern "C" int karatsuba_ppm_launch(const void* a, const void* b, void* out,
                                     int bsz, int n, void* stream) {
   switch (n) {
@@ -89,6 +89,10 @@ extern "C" int karatsuba_ppm_launch(const void* a, const void* b, void* out,
     case 12: return launch<12>(a, b, out, bsz, stream);
     case 14: return launch<14>(a, b, out, bsz, stream);
     case 16: return launch<16>(a, b, out, bsz, stream);
+    case 18: return launch<18>(a, b, out, bsz, stream);
+    case 20: return launch<20>(a, b, out, bsz, stream);
+    case 22: return launch<22>(a, b, out, bsz, stream);
+    case 24: return launch<24>(a, b, out, bsz, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -124,7 +128,7 @@ extern "C" int karatsuba_ppm_bulk_shape(int n, int* info) {
 // bytes, most threads a block} (the launch contract of
 // kernels/karatsuba_ppm/ops.py is held to them).
 extern "C" int karatsuba_ppm_launch_shape(int bsz, int n, int* info) {
-  if (n < 2 || n > 16 || n % 2) return cudaErrorInvalidValue;
+  if (n < 2 || n > limbs::kMaxLimbs || n % 2) return cudaErrorInvalidValue;
   tiles::tile_launch_shape(n, 1, bsz, n, n, info);
   return cudaSuccess;
 }
@@ -139,6 +143,10 @@ extern "C" int karatsuba_ppm_attributes(int bsz, int n, int* info) {
     case 12: return tiles::attributes(karatsuba_ppm_kernel<12>, info);
     case 14: return tiles::attributes(karatsuba_ppm_kernel<14>, info);
     case 16: return tiles::attributes(karatsuba_ppm_kernel<16>, info);
+    case 18: return tiles::attributes(karatsuba_ppm_kernel<18>, info);
+    case 20: return tiles::attributes(karatsuba_ppm_kernel<20>, info);
+    case 22: return tiles::attributes(karatsuba_ppm_kernel<22>, info);
+    case 24: return tiles::attributes(karatsuba_ppm_kernel<24>, info);
     default: return cudaErrorInvalidValue;
   }
 }

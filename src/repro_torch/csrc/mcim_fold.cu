@@ -30,7 +30,11 @@
 //
 // Bound: at the registry widths (1 to 8 limbs) memory bytes bound all
 // three on the H100: a row moves 4 (LA + LB) bytes in and 4 (LA + LB)
-// out against a few hundred integer operations.
+// out against a few hundred integer operations. Rows of up to
+// limbs::kMaxLimbs = 24 limbs (BLS12-381's 381-bit field elements) are
+// taken; above 16, FB and FF multiply column by column
+// (tiles::schoolbook_by_columns) and the folded Karatsuba's half-width
+// products are of 9 to 13 limbs (N = 18 to 24).
 #include "kara_rows.cuh"
 
 namespace {
@@ -62,7 +66,8 @@ namespace {
 // against 1.9 us of operations at 16.7 Tops/s), and a thread storing its
 // LA+LB limbs at a stride of LA+LB words touches many sectors a warp
 // instruction. So the rows move as tiles (row_tiles.cuh):
-// * fold_bulk_kernel (LA = LB = 2, 4, 8 or 16, 16-byte-aligned spans):
+// * fold_bulk_kernel (LA = LB = 2, 4, 8, 16 or 24, 16-byte-aligned
+//   spans):
 //   a persistent grid walks the row tiles; a ring of stages
 //   keeps the next tiles' A and B spans in flight as 1-D TMA bulk copies
 //   on mbarriers while the current tile computes, rows are read from
@@ -75,7 +80,8 @@ namespace {
 //   from device memory, products wider than 16 bytes stored through
 //   shared memory with neighbouring threads on neighbouring words.
 // The host picks the path (kernels/_row_tiles.py `plan`); a launch the
-// bulk path cannot take returns cudaErrorInvalidValue.
+// bulk path cannot take returns cudaErrorInvalidValue, as does one of
+// rows wider than limbs::kMaxLimbs on any path.
 struct ExactRows {
   template <int M>
   __device__ __forceinline__ void weights(int, uint32_t (&c)[M]) const {
@@ -181,23 +187,26 @@ cudaError_t launch_kara(const void* a, const void* b, void* out, int bsz,
 
 // FB and FF (one function, the exact product) on the per-thread path:
 // a, b: (bsz, la), (bsz, lb) limbs; out: (bsz, la + lb); any widths up
-// to 16 limbs, any 4-byte alignment.
+// to limbs::kMaxLimbs, any 4-byte alignment.
 extern "C" int mcim_fold_launch(const void* a, const void* b, void* out,
                                 int bsz, int la, int lb, void* stream) {
   auto* pa = static_cast<const uint32_t*>(a);
   auto* pb = static_cast<const uint32_t*>(b);
   auto* po = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
   switch (limbs::bucket(la, lb)) {
     case 2: return launch_tiles<2>(fold_kernel<2>, pa, pb, po, bsz, la, lb, s);
     case 4: return launch_tiles<4>(fold_kernel<4>, pa, pb, po, bsz, la, lb, s);
     case 8: return launch_tiles<8>(fold_kernel<8>, pa, pb, po, bsz, la, lb, s);
-    default:
+    case 16:
       return launch_tiles<16>(fold_kernel<16>, pa, pb, po, bsz, la, lb, s);
+    default:
+      return launch_tiles<24>(fold_kernel<24>, pa, pb, po, bsz, la, lb, s);
   }
 }
 
-// FB and FF on the bulk path: LA = LB = 2, 4, 8 or 16 limbs,
+// FB and FF on the bulk path: LA = LB = 2, 4, 8, 16 or 24 limbs,
 // 16-byte-aligned operands, bsz * LA a multiple of 4.
 extern "C" int mcim_fold_bulk_launch(const void* a, const void* b,
                                      void* out, int bsz, int la, int lb,
@@ -212,6 +221,7 @@ extern "C" int mcim_fold_bulk_launch(const void* a, const void* b,
     case 4: return launch_fold_bulk<4>(pa, pb, po, bsz, s);
     case 8: return launch_fold_bulk<8>(pa, pb, po, bsz, s);
     case 16: return launch_fold_bulk<16>(pa, pb, po, bsz, s);
+    case 24: return launch_fold_bulk<24>(pa, pb, po, bsz, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -224,15 +234,17 @@ extern "C" int mcim_fold_bulk_shape(int la, int* info) {
     case 4: return tiles::bulk_shape<4>(fold_bulk_kernel<4>, info);
     case 8: return tiles::bulk_shape<8>(fold_bulk_kernel<8>, info);
     case 16: return tiles::bulk_shape<16>(fold_bulk_kernel<16>, info);
+    case 24: return tiles::bulk_shape<24>(fold_bulk_kernel<24>, info);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The folded Karatsuba: a, b: (bsz, la), (bsz, lb) limbs; out: (bsz,
-// la + lb); any widths up to 16 limbs, any 4-byte alignment.
+// la + lb); any widths up to limbs::kMaxLimbs, any 4-byte alignment.
 extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
                                           void* out, int bsz, int la,
                                           int lb, void* stream) {
+  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
   switch (kara_n(la, lb)) {
     case 2: return launch_kara<2>(a, b, out, bsz, la, lb, stream);
     case 4: return launch_kara<4>(a, b, out, bsz, la, lb, stream);
@@ -241,7 +253,11 @@ extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
     case 10: return launch_kara<10>(a, b, out, bsz, la, lb, stream);
     case 12: return launch_kara<12>(a, b, out, bsz, la, lb, stream);
     case 14: return launch_kara<14>(a, b, out, bsz, la, lb, stream);
-    default: return launch_kara<16>(a, b, out, bsz, la, lb, stream);
+    case 16: return launch_kara<16>(a, b, out, bsz, la, lb, stream);
+    case 18: return launch_kara<18>(a, b, out, bsz, la, lb, stream);
+    case 20: return launch_kara<20>(a, b, out, bsz, la, lb, stream);
+    case 22: return launch_kara<22>(a, b, out, bsz, la, lb, stream);
+    default: return launch_kara<24>(a, b, out, bsz, la, lb, stream);
   }
 }
 
@@ -251,6 +267,7 @@ extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
 // bytes, most threads a block} (the launch contracts of
 // kernels/mcim_fold/ops.py are held to them).
 extern "C" int mcim_fold_launch_shape(int bsz, int la, int lb, int* info) {
+  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
   tiles::tile_launch_shape(limbs::bucket(la, lb), 1, bsz, la, lb, info);
   return cudaSuccess;
 }
@@ -260,7 +277,8 @@ extern "C" int mcim_fold_attributes(int bsz, int la, int lb, int* info) {
     case 2: return tiles::attributes(fold_kernel<2>, info);
     case 4: return tiles::attributes(fold_kernel<4>, info);
     case 8: return tiles::attributes(fold_kernel<8>, info);
-    default: return tiles::attributes(fold_kernel<16>, info);
+    case 16: return tiles::attributes(fold_kernel<16>, info);
+    default: return tiles::attributes(fold_kernel<24>, info);
   }
 }
 
@@ -272,6 +290,7 @@ extern "C" int mcim_fold_bulk_launch_shape(int bsz, int la, int lb,
     case 4: return fold_bulk_shape<4>(bsz, info);
     case 8: return fold_bulk_shape<8>(bsz, info);
     case 16: return fold_bulk_shape<16>(bsz, info);
+    case 24: return fold_bulk_shape<24>(bsz, info);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -284,12 +303,14 @@ extern "C" int mcim_fold_bulk_attributes(int bsz, int la, int lb,
     case 4: return tiles::attributes(fold_bulk_kernel<4>, info);
     case 8: return tiles::attributes(fold_bulk_kernel<8>, info);
     case 16: return tiles::attributes(fold_bulk_kernel<16>, info);
+    case 24: return tiles::attributes(fold_bulk_kernel<24>, info);
     default: return cudaErrorInvalidValue;
   }
 }
 
 extern "C" int mcim_fold_karatsuba_launch_shape(int bsz, int la, int lb,
                                                 int* info) {
+  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
   tiles::tile_launch_shape(kara_n(la, lb), 1, bsz, la, lb, info);
   return cudaSuccess;
 }
@@ -304,6 +325,10 @@ extern "C" int mcim_fold_karatsuba_attributes(int bsz, int la, int lb,
     case 10: return tiles::attributes(kara_fold_kernel<10>, info);
     case 12: return tiles::attributes(kara_fold_kernel<12>, info);
     case 14: return tiles::attributes(kara_fold_kernel<14>, info);
-    default: return tiles::attributes(kara_fold_kernel<16>, info);
+    case 16: return tiles::attributes(kara_fold_kernel<16>, info);
+    case 18: return tiles::attributes(kara_fold_kernel<18>, info);
+    case 20: return tiles::attributes(kara_fold_kernel<20>, info);
+    case 22: return tiles::attributes(kara_fold_kernel<22>, info);
+    default: return tiles::attributes(kara_fold_kernel<24>, info);
   }
 }

@@ -22,7 +22,7 @@
 //
 // Two paths, chosen on the host (kernels/_row_tiles.py `plan`):
 //
-// * bulk_walk, for rows of LA = LB = L limbs (L = 2, 4, 8, 16) whose
+// * bulk_walk, for rows of LA = LB = L limbs (L = 2, 4, 8, 16, 24) whose
 //   spans are 16-byte aligned: a persistent grid, each block walking
 //   tiles blockIdx.x, blockIdx.x + gridDim.x, ... of Bulk<L>::kTileRows
 //   rows inside one instance. One thread issues two 1-D TMA bulk copies a
@@ -58,11 +58,12 @@ constexpr int kTileRows = limbs::kThreads;
 // little work that a tile's fixed cost (its barrier wait, __syncthreads
 // and index arithmetic) would otherwise dominate, and the products leave
 // straight from registers (no output slots). Above, two output slots let
-// a tile's bulk store drain while the next tile computes. At 8 and 16
+// a tile's bulk store drain while the next tile computes. At 8, 16 and 24
 // limbs two blocks an SM; at 2 and 4 as many as fit.
 template <int L>
 struct Bulk {
-  static_assert(L == 2 || L == 4 || L == 8 || L == 16, "bulk widths");
+  static_assert(L == 2 || L == 4 || L == 8 || L == 16 || L == 24,
+                "bulk widths");
   static constexpr int kRowsPerThread = L == 2 ? 2 : 1;
   static constexpr int kThreads = L <= 4 ? 256 : 128;
   static constexpr int kTileRows = kRowsPerThread * kThreads;
@@ -152,13 +153,16 @@ __device__ __forceinline__ void rotate(uint4 (&c)[C], int rot) {
   }
 }
 
-// The first 16-byte chunk lane `r` touches in a row of C chunks: rows
-// share a 128-byte line 8/C at a time, and the next ones start one
-// chunk further, so the 8 lanes of a quarter warp cover 8 distinct
-// 16-byte bank groups.
+// The first 16-byte chunk lane `r` touches in a row of C chunks. Row r
+// starts C * r chunks in, so rows r and r + 8/gcd(C, 8) start on the same
+// one of a 128-byte line's 8 bank groups (rows of 1, 2 and 4 chunks share
+// a line 8/C at a time; rows of 6 and 12, at 24 limbs, straddle lines);
+// each next 8/gcd(C, 8) rows start one chunk further, so the 8 lanes of a
+// quarter warp cover 8 distinct 16-byte bank groups, at every chunk.
 template <int C>
 __device__ __forceinline__ int first_chunk(int r) {
-  constexpr int kRowsPerLine = C >= 8 ? 1 : 8 / C;
+  constexpr int kGcd = C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1;
+  constexpr int kRowsPerLine = 8 / kGcd;
   return (r / kRowsPerLine) % C;
 }
 
@@ -250,18 +254,58 @@ __device__ __forceinline__ void carry_pass(uint32_t (&cols)[W], int n) {
   }
 }
 
+// The weighted schoolbook of rows wider than 16 limbs, column by column:
+// B limb jb is scaled by its weight once (c[jb] * b[jb]), column k's limb
+// products go whole into one 64-bit sum, one wide multiply-add each
+// (mad.wide.u32; at most 24 terms below 2**48 and a carry), and each
+// column is cut into its canonical limb as it closes, its carry going on
+// to the next. That is sum(c[jb] a[i] b[jb] 2**(16(i+jb))) mod 2**(32M),
+// which is what ppm_weighted and carry_pass give wherever their uint32
+// column sums do not wrap (every weight below 1,365 at 24 limbs; a fold's
+// windows give weights 0 and 1), so the limbs below n are theirs bit for
+// bit. At 24 limbs a row holds 24 + 24 limbs, 48 product limbs and one
+// 64-bit sum in registers where ppm_weighted would hold 48 columns beside
+// 24 weights, and issues 576 wide multiply-adds for its 2,880 operations.
+template <int M>
+__device__ __forceinline__ void schoolbook_by_columns(
+    const uint32_t (&a)[M], const uint32_t (&b)[M], const uint32_t (&c)[M],
+    uint32_t (&cols)[2 * M]) {
+  uint32_t bw[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) bw[j] = c[j] * b[j];
+  uint64_t sum = 0;
+#pragma unroll
+  for (int k = 0; k < 2 * M - 1; ++k) {
+    // a fixed trip count, so that both loops unroll and every index is a
+    // constant (a trip count varying with k keeps the limbs in local
+    // memory)
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (k - i >= 0 && k - i < M) sum += (uint64_t)a[i] * bw[k - i];
+    }
+    cols[k] = (uint32_t)sum & limbs::kMask;
+    sum >>= limbs::kRadixBits;
+  }
+  cols[2 * M - 1] = (uint32_t)sum & limbs::kMask;
+}
+
 // The row product of a fold whose tile state is limb weights (bank_fold,
 // FB, FF): one weighted schoolbook pass, then one carry pass over
-// columns [0, n).
+// columns [0, n) (rows wider than 16 limbs: schoolbook_by_columns, every
+// column carried).
 template <int M>
 __device__ __forceinline__ void schoolbook(const uint32_t (&a)[M],
                                            const uint32_t (&b)[M],
                                            const uint32_t (&w)[M],
                                            uint32_t (&cols)[2 * M], int n) {
+  if constexpr (M > 16) {
+    schoolbook_by_columns<M>(a, b, w, cols);
+  } else {
 #pragma unroll
-  for (int c = 0; c < 2 * M; ++c) cols[c] = 0u;
-  ppm_weighted<M>(a, b, w, cols);
-  carry_pass<2 * M>(cols, n);
+    for (int c = 0; c < 2 * M; ++c) cols[c] = 0u;
+    ppm_weighted<M>(a, b, w, cols);
+    carry_pass<2 * M>(cols, n);
+  }
 }
 
 // The bulk path: n_inst instances of `rows` rows, rows of L words in a
@@ -523,7 +567,7 @@ cudaError_t bulk_launch_shape(Kernel kernel, long long n_inst,
 // info = {tiles, n_inst, kTileRows threads, dynamic shared bytes}, one
 // block a tile of kTileRows rows of an instance; products wider than 4
 // words leave through kTileRows rows of pitch(la + lb) words (at most
-// 16,896 B: no attribute needed).
+// 25,088 B, at 24 limbs: below the default 48 KiB, no attribute needed).
 inline void tile_launch_shape(int maxl, int n_inst, int rows, int la, int lb,
                               int* info) {
   info[0] = (rows + kTileRows - 1) / kTileRows;

@@ -61,6 +61,13 @@ TABLE_VIII = {
 USE_CASES = {
     "tp3p5_w32": DesignSpec(32, 32, Fraction(7, 2)),
     "tp5over6_w128": DesignSpec(128, 128, Fraction(5, 6)),
+    # BLS12-381's base field: p of 381 bits (the BLS12_381 curve of IETF
+    # draft-irtf-cfrg-pairing-friendly-curves; Ethereum's consensus-layer
+    # signatures, Zcash Sapling, Filecoin), every Fp product starting with
+    # a 381 x 381-bit integer product; TP 5/6 is the use case's fraction
+    # above, not the curve's.  24-limb rows: wider than the JAX package's
+    # kernels take, so this design is the port's alone.
+    "tp5over6_w381": DesignSpec(381, 381, Fraction(5, 6)),
 }
 
 # Low-power companions to the Table-VIII rows: the best-ENERGY design

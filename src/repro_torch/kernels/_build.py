@@ -10,9 +10,11 @@ the first time any kernel is launched.
 
 Every wrapper launches through :func:`launch`, which counts the launch
 there and nowhere else, in :mod:`repro_torch.telemetry`'s counters
-``launch.<kernel>`` and, for a kernel with two paths,
-``launch.<kernel>.<path>``; :func:`launch_counts` and
-:func:`path_counts` read them.  Nothing here sends a CUDA tensor to a
+``launch.<kernel>``, for a kernel with two paths
+``launch.<kernel>.<path>``, and for a launch of rows wider than
+:data:`WIDE_LIMBS` also ``launch.<kernel>.wide``, whichever path it
+takes; :func:`launch_counts`, :func:`path_counts` and
+:func:`wide_counts` read them.  Nothing here sends a CUDA tensor to a
 plain path.
 """
 from __future__ import annotations
@@ -35,8 +37,13 @@ SOURCES = ("bank_fold", "mcim_fold", "prefix_adder", "karatsuba_ppm",
            "int8_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: widest operand (limbs) the kernels take: 256-bit operands
-MAX_LIMBS = 16
+#: widest operand (limbs) the kernels take: 384-bit operands, which hold
+#: BLS12-381's 381-bit field elements (``limbs::kMaxLimbs`` of
+#: ``csrc/limbs.cuh``; the launchers refuse wider rows)
+MAX_LIMBS = 24
+#: rows wider than this (limbs) take the 24-limb instantiations, whose
+#: launches are also counted as ``launch.<kernel>.wide``
+WIDE_LIMBS = 16
 
 _LIBS: dict = {}
 _FNS: dict = {}
@@ -140,10 +147,12 @@ def query(lib: str, symbol: str, ints) -> tuple:
     return tuple(info)
 
 
-def launch(kernel: str, fn, tensors, ints, path: str | None = None) -> None:
+def launch(kernel: str, fn, tensors, ints, path: str | None = None,
+           limbs: int = 0) -> None:
     """Launch ``fn`` on the current stream of the tensors' device, count
-    it (and its ``path``, for a kernel with two), and raise if CUDA
-    refused the launch."""
+    it (and its ``path``, for a kernel with two; and, where its rows'
+    ``limbs`` exceed :data:`WIDE_LIMBS`, as a wide launch), and raise if
+    CUDA refused the launch."""
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -151,6 +160,8 @@ def launch(kernel: str, fn, tensors, ints, path: str | None = None) -> None:
     telemetry.count(f"launch.{kernel}")
     if path is not None:
         telemetry.count(f"launch.{kernel}.{path}")
+    if limbs > WIDE_LIMBS:
+        telemetry.count(f"launch.{kernel}.wide")
     if err:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
@@ -174,7 +185,8 @@ def check_limbs(name: str, la: int, lb: int) -> None:
     """Raise on limb counts above :data:`MAX_LIMBS`."""
     if max(la, lb) > MAX_LIMBS:
         raise ValueError(f"{name}: {la}x{lb} limbs exceed the kernels' "
-                         f"{MAX_LIMBS}-limb (256-bit) operand limit")
+                         f"{MAX_LIMBS}-limb ({16 * MAX_LIMBS}-bit) operand "
+                         f"limit")
 
 
 def reset_launch_counts() -> None:
@@ -194,3 +206,10 @@ def path_counts() -> dict:
     counters = telemetry.totals()["counters"]
     return {k: {p: counters[f"launch.{k}.{p}"] for p in paths}
             for k, paths in telemetry.KERNEL_PATHS.items()}
+
+
+def wide_counts() -> dict:
+    """Launches of each limb kernel on rows wider than
+    :data:`WIDE_LIMBS` since the last reset."""
+    counters = telemetry.totals()["counters"]
+    return {k: counters[f"launch.{k}.wide"] for k in telemetry.WIDE_KERNELS}

@@ -9,7 +9,7 @@ takes rows of 2 limbs only) each have two paths:
   and one bulk store writes its products (at 2 limbs each thread stores
   its 16-byte product itself).  A bulk copy takes 16-byte-aligned
   addresses and sizes in multiples of 16 bytes, so the path needs
-  16-byte-aligned operands, ``LA = LB`` in 2, 4, 8, 16 limbs, and
+  16-byte-aligned operands, ``LA = LB`` in 2, 4, 8, 16, 24 limbs, and
   ``rows * LA`` a multiple of 4 (then every tile's spans, the ragged
   last one included, are whole 16-byte units: a tile's rows are a
   multiple of 128).  Its tiles, stages and blocks an SM are
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 PATHS = ("bulk", "per_thread")
 #: operand widths (limbs, LA = LB) the bulk kernels are compiled for
-BULK_LIMBS = (2, 4, 8, 16)
+BULK_LIMBS = (2, 4, 8, 16, 24)
 #: rows of a per-thread tile, one thread a row (``tiles::kTileRows``)
 TILE_ROWS = 128
 #: SMs of the H100 the launch contracts declare their grids for
@@ -36,9 +36,10 @@ H100_SMS = 132
 #: and shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
 #: the card holds the declaration to it, ``python -m repro_torch.verify
 #: --device cuda``): 8 at 2 limbs (256 threads), 4 at 4 (49,184 B of
-#: shared memory), capped at ``kPerSm`` = 2 from 8 limbs up
-H100_BULK_FIT = {"bank_fold": {2: 8, 4: 4, 8: 2, 16: 2},
-                 "mcim_fold": {2: 8, 4: 4, 8: 2, 16: 2},
+#: shared memory), capped at ``kPerSm`` = 2 from 8 limbs up (at 24 limbs
+#: two blocks of 98,320 B are also what the SM's shared memory holds)
+H100_BULK_FIT = {"bank_fold": {2: 8, 4: 4, 8: 2, 16: 2, 24: 2},
+                 "mcim_fold": {2: 8, 4: 4, 8: 2, 16: 2, 24: 2},
                  "karatsuba_ppm": {2: 8}}
 
 
@@ -97,9 +98,11 @@ def tile_launch(maxl: int, n_inst: int, rows: int, la: int, lb: int
 
 
 def bucket(la: int, lb: int) -> int:
-    """The compiled width (``limbs::bucket``) that holds max(LA, LB)."""
+    """The compiled width (``limbs::bucket``) that holds max(LA, LB),
+    at most 24 limbs."""
     n = max(la, lb)
-    return 2 if n <= 2 else 4 if n <= 4 else 8 if n <= 8 else 16
+    return (2 if n <= 2 else 4 if n <= 4 else 8 if n <= 8
+            else 16 if n <= 16 else 24)
 
 
 def tile_walk(n_inst: int, rows: int, tile_rows: int, grid: int) -> list:

@@ -62,7 +62,7 @@ def launch_plan(n_inst: int, rows: int, la: int, lb: int,
                 aligned: bool) -> str:
     """The path of ``csrc/bank_fold.cu`` (one of :data:`PATHS`) that
     takes (N_INST, R, LA) x (N_INST, R, LB) blocks: ``"bulk"`` where TMA
-    bulk copies can move every tile (LA = LB in 2, 4, 8, 16;
+    bulk copies can move every tile (LA = LB in 2, 4, 8, 16, 24;
     16-byte-aligned operands, ``aligned``; R * LA a multiple of 4), else
     ``"per_thread"``.  ``n_inst`` does not change the choice: instance
     i's span starts i * R * LA words in.  See
@@ -115,7 +115,8 @@ def fused_bank_mul_kernel(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     symbol = "bank_fold_bulk_launch" if path == "bulk" else "bank_fold_launch"
     fn = _build.launcher("bank_fold", symbol, 4, 5)
     _build.launch("bank_fold", fn, (a_blocks, b_blocks, table, out),
-                  (n_inst, rows, la, lb, max_steps), path=path)
+                  (n_inst, rows, la, lb, max_steps), path=path,
+                  limbs=max(la, lb))
     return out
 
 

@@ -42,6 +42,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 
 from . import _row_tiles
+from ._build import MAX_LIMBS
 
 #: H100 SXM peaks (NVIDIA data sheet; CUDA C Programming Guide throughput
 #: table for compute capability 9.0: 64 int32 add/logic/shift/IMAD
@@ -294,8 +295,9 @@ def launch_shape(kernel: str, args: tuple) -> tuple:
     else:
         (rows, la), n_inst = args, 1
         lb = la
-        if la % 2 or not 2 <= la <= 16:
-            raise ValueError(f"{kernel}: N = {la} is not an even 2-16")
+        if la % 2 or not 2 <= la <= MAX_LIMBS:
+            raise ValueError(f"{kernel}: N = {la} is not an even "
+                             f"2-{MAX_LIMBS}")
     if kernel.endswith("_bulk_launch"):
         if la != lb or la not in rt.H100_BULK_FIT[lib] or rows * la % 4:
             raise ValueError(f"{kernel}: the bulk path does not take "

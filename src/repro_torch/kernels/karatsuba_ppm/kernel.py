@@ -99,7 +99,8 @@ def karatsuba_ppm_kernel(a: torch.Tensor, b: torch.Tensor, *,
     symbol = ("karatsuba_ppm_bulk_launch" if path == "bulk"
               else "karatsuba_ppm_launch")
     fn = _build.launcher("karatsuba_ppm", symbol, 3, 2)
-    _build.launch("karatsuba_ppm", fn, (a, b, out), (bsz, n), path=path)
+    _build.launch("karatsuba_ppm", fn, (a, b, out), (bsz, n), path=path,
+                  limbs=n)
     return out
 
 

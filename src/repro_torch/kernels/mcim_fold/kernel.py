@@ -105,7 +105,7 @@ def mcim_fold_mul_ref(a: torch.Tensor, b: torch.Tensor, *, ct: int = 2,
 def fold_launch_plan(bsz: int, la: int, lb: int, aligned: bool) -> str:
     """The path of FB's and FF's kernel in ``csrc/mcim_fold.cu`` (one of
     :data:`PATHS`) that takes a (B, LA) x (B, LB) product: ``"bulk"``
-    where TMA bulk copies can move every tile (LA = LB in 2, 4, 8, 16;
+    where TMA bulk copies can move every tile (LA = LB in 2, 4, 8, 16, 24;
     16-byte-aligned operands, ``aligned``; B * LA a multiple of 4), else
     ``"per_thread"``: star's odd row count of 2-limb rows, for one.  See
     :mod:`repro_torch.kernels._row_tiles`."""
@@ -177,7 +177,8 @@ def mcim_fold_kernel(a: torch.Tensor, b: torch.Tensor, *, schedule: str,
     symbol = "mcim_fold_bulk_launch" if path == "bulk" else "mcim_fold_launch"
     fn = _build.launcher("mcim_fold", symbol, 3, 3)
     _build.launch(name, fn, (a, b, out), (a.shape[0], a.shape[1],
-                                          b.shape[1]), path=path)
+                                          b.shape[1]), path=path,
+                  limbs=max(a.shape[1], b.shape[1]))
     return out
 
 
@@ -194,7 +195,8 @@ def mcim_fold_karatsuba_kernel(a: torch.Tensor, b: torch.Tensor
         return out
     fn = _build.launcher("mcim_fold", f"{name}_launch", 3, 3)
     _build.launch(name, fn, (a, b, out), (a.shape[0], a.shape[1],
-                                          b.shape[1]))
+                                          b.shape[1]),
+                  limbs=max(a.shape[1], b.shape[1]))
     return out
 
 

@@ -30,6 +30,9 @@ worker.rows           Worker._execute_round   (counter) a round's requests
 worker.bucket_rows    Worker._execute_round   (counter) its padded rows
 launch.<kernel>       kernels._build.launch   (counter) launches
 launch.<kernel>.<p>   kernels._build.launch   (counter) launches by path
+launch.<kernel>.wide  kernels._build.launch   (counter) launches of rows
+                                              wider than 16 limbs, on
+                                              either path
 ====================  ======================  =============================
 
 Recording costs two ``perf_counter`` reads a span at its caller and two
@@ -50,7 +53,7 @@ from array import array
 from operator import add
 from time import perf_counter
 
-#: rows kept: the last CAPACITY root calls, 392 bytes each (a 51 s serve
+#: rows kept: the last CAPACITY root calls, 432 bytes each (a 51 s serve
 #: window makes about 4,600; a 51 s bulk window about 55,000 at 32 bits,
 #: and up to 75,000 were a call only its round's 0.68 ms of device work)
 CAPACITY = 131_072
@@ -63,13 +66,18 @@ KERNELS = ("bank_fold", "mcim_fold_fb", "mcim_fold_ff",
 KERNEL_PATHS = {k: ("bulk", "per_thread")
                 for k in ("bank_fold", "mcim_fold_fb", "mcim_fold_ff",
                           "karatsuba_ppm")}
+#: the limb kernels, whose launches of rows wider than 16 limbs (the
+#: 24-limb instantiations) count apart as ``launch.<kernel>.wide``
+WIDE_KERNELS = ("bank_fold", "mcim_fold_fb", "mcim_fold_ff",
+                "mcim_fold_karatsuba", "karatsuba_ppm")
 SPANS = ROOTS + ("bank.schedule", "bank.latency", "bank.dispatch_build",
                  "bank_fold.launch", "worker.admit", "worker.round_host")
 COUNTERS = (("bank.report_builds", "bank.dispatch_builds", "worker.rows",
              "worker.bucket_rows")
             + tuple(f"launch.{k}" for k in KERNELS)
             + tuple(f"launch.{k}.{p}" for k, paths in KERNEL_PATHS.items()
-                    for p in paths))
+                    for p in paths)
+            + tuple(f"launch.{k}.wide" for k in WIDE_KERNELS))
 
 # a row: id, root, t0, t1, then (seconds, count) a span, then the counters
 _HEAD = 4

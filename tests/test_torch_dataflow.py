@@ -269,7 +269,8 @@ def test_unknown_launcher_and_wide_rows_are_findings():
                 dataclasses.replace(c, path="tma")):
         assert _rules(TDF.analyze_contract(bad).violations) == {
             "analyzer-gap"}
-    wide = mcim_fold.launch_contract(17, 17, 2)
+    over = TDF.MAX_LIMBS + 1          # one limb past the kernels' widest
+    wide = mcim_fold.launch_contract(over, over, 2)
     assert _rules(TDF.analyze_contract(wide).violations) == {
         "launch-width"}
     assert _rules(TDF.analyze_contract(

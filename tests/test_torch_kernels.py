@@ -188,9 +188,9 @@ def test_fused_shape_errors():
 
 
 def test_kernel_operand_checks():
-    with pytest.raises(ValueError):
-        _build.check_limbs("k", 17, 2)
-    _build.check_limbs("k", 16, 16)
+    with pytest.raises(ValueError):       # one limb past the widest
+        _build.check_limbs("k", _build.MAX_LIMBS + 1, 2)
+    _build.check_limbs("k", _build.MAX_LIMBS, _build.MAX_LIMBS)
     with pytest.raises(ValueError):      # a CPU tensor is not a CUDA one
         _build.check_cuda_operands("k", torch.zeros(2, dtype=torch.int32))
 
@@ -232,7 +232,8 @@ def test_bank_kernel_matches_plain_on_card(cuda_device, bits, tp):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
-    wide = torch.zeros((4, 17), dtype=torch.int32, device=cuda_device)
+    wide = torch.zeros((4, _build.MAX_LIMBS + 1), dtype=torch.int32,
+                       device=cuda_device)           # one limb past the widest
     with pytest.raises(ValueError):
         TF.mcim_fold_mul(wide, wide, ct=2)
     small = torch.zeros((4, 2), dtype=torch.int64, device=cuda_device)
@@ -355,7 +356,8 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
         TPA.prefix_final_adder(wide)
     with pytest.raises(ValueError):                 # int32 columns
         TPA.prefix_final_adder(wide[:, :8].to(torch.int32))
-    limbs = torch.zeros((4, 18), dtype=torch.int32, device=cuda_device)
+    limbs = torch.zeros((4, _build.MAX_LIMBS + 2), dtype=torch.int32,
+                        device=cuda_device)          # even, past the widest
     with pytest.raises(ValueError):
         TK.karatsuba_ppm_mul(limbs, limbs)
     x = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)

@@ -3,7 +3,9 @@
 same registry, vocabulary, decompositions, fused and schedulers entries
 (the reference's ``sweep_*`` functions, its jaxpr dataflow gate patched
 out as ``tests/test_torch_verify.py`` does); a seeded violation exits
-1; without CUDA the default device raises."""
+1; without CUDA the default device raises.  Designs the port alone
+registers (rows wider than the reference's kernels take) go through the
+reference's sweeps too, registered there for the comparison."""
 import json
 
 import pytest
@@ -11,6 +13,8 @@ import pytest
 import repro.designs.registry as RR
 import repro.verify as RV
 import repro.verify.__main__ as RM
+from repro.designs import DesignSpec as RSpec
+from repro_torch import designs as TD
 from repro_torch.verify import __main__ as TM
 from repro_torch.verify import dataflow as TDF
 
@@ -30,8 +34,10 @@ def reference(monkeypatch):
     monkeypatch.setattr(RV, "assert_plan_dataflow", lambda *a, **k: None)
     # the shipped registry only: a reference test run earlier in this
     # process may have registered a scratch design ("_test_tmp")
-    monkeypatch.setattr(RR, "_REGISTRY", {
-        n: s for n, s in RR._REGISTRY.items() if not n.startswith("_")})
+    shipped = {n: s for n, s in RR._REGISTRY.items() if not n.startswith("_")}
+    for name in set(TD.names()) - set(shipped):      # the port's own
+        shipped[name] = RSpec.from_dict(TD.get(name).to_dict())
+    monkeypatch.setattr(RR, "_REGISTRY", shipped)
     return RM
 
 
@@ -72,7 +78,7 @@ def test_schedulers_equal_the_references(report):
 
 def test_dataflow_bank_and_lint_sections(report):
     launches = [e for e in report["dataflow"] if "launches" in e]
-    assert len(launches) == 13 + 3 * len(TM._vocabulary())
+    assert len(launches) == len(TD.names()) + 3 * len(TM._vocabulary())
     standalone = [e for e in report["dataflow"]
                   if "launch" in e and "batch" not in e]
     assert [e["launch"].split("[")[0] for e in standalone] == [
