@@ -18,12 +18,13 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
 
 from portbench import report
+from portbench.program_spans import ProgramRows
 from portbench.spans import DeviceWindow, GcSpans, HostSpans
 
 ROOT = Path(__file__).resolve().parent
@@ -82,6 +83,9 @@ class Record:
     spans: HostSpans | None      # traced runs
     device: DeviceWindow | None  # traced runs with device time recorded
     bound_s: float | None        # the frozen work bound of one call
+    #: the program's rows, read stretch by stretch (traced runs); ``None``:
+    #: read the whole window at once
+    program: ProgramRows | None = None
 
     @property
     def n_calls(self) -> int:
@@ -112,27 +116,34 @@ class Record:
 
 #: the length of one profiler session in a traced window (s)
 STRETCH_S = 2.5
+#: the most calls in one stretch of a traced window with no profiler
+#: session to size it (off the card): the program's rows are read well
+#: before the ring holds too few
+STRETCH_CALLS = 800
 
 
 def stretches(seconds: float) -> int:
-    """The profiler sessions a traced window of ``seconds`` is cut into."""
+    """The time shares a traced window of ``seconds`` is cut into."""
     return max(1, round(seconds / STRETCH_S))
 
 
 def measure(driver, seconds: float, first: int, parts: int = 1,
-            stretch=None) -> list:
+            stretch=None, max_calls=None) -> list:
     """Back-to-back calls until their time adds up to ``seconds``; the
     window ends with the call that crosses it.  A traced window runs as
-    ``parts`` stretches, each inside ``stretch(calls)`` (a profiler
-    session, started and stopped between calls, off the clock), the
-    i-th ending with the call that crosses i / ``parts`` of the time."""
+    stretches, each inside ``stretch(calls)`` (a profiler session and the
+    reading of the program's rows, started and ended between calls, off
+    the clock); a stretch ends with the call that crosses the next of
+    ``parts`` equal shares of the time, or with its ``max_calls``-th
+    call (a number, or a function giving the next stretch's), whichever
+    comes first, so that each call falls in exactly one stretch."""
     calls = []
-    k, inside = first, 0.0
-    for i in range(1, parts + 1):
-        if inside >= seconds * i / parts:
-            continue                 # the last call crossed this share too
+    k, inside, share = first, 0.0, 1
+    while inside < seconds:
+        cap = max_calls() if callable(max_calls) else max_calls
         with stretch(calls) if stretch else nullcontext():
-            while inside < seconds * i / parts:
+            n = 0
+            while inside < seconds * share / parts and n != cap:
                 t0 = time.perf_counter()
                 out, items = driver.call(k)
                 t1 = time.perf_counter()
@@ -140,7 +151,22 @@ def measure(driver, seconds: float, first: int, parts: int = 1,
                 inside += t1 - t0
                 driver.keep(k, out)
                 k += 1
+                n += 1
+        while share < parts and inside >= seconds * share / parts:
+            share += 1               # the last call crossed this share
     return calls
+
+
+def traced_stretch(rows: ProgramRows, dev: DeviceWindow | None):
+    """A traced window's ``stretch``: a profiler session (on the card)
+    inside the reading of the program's rows, which comes after the
+    session has stopped."""
+    @contextmanager
+    def stretch(calls: list):
+        with rows.stretch(calls), \
+                dev.stretch(calls) if dev else nullcontext():
+            yield
+    return stretch
 
 
 def describe_window(calls: list, gcs: GcSpans, load: tuple) -> str:
@@ -198,14 +224,17 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float,
             in zip(phases, phases[1:])), file=sys.stderr)
         spans = HostSpans() if trace else None
         dev = DeviceWindow(driver.side) if trace and cuda else None
+        rows = ProgramRows() if trace else None
         if spans:
             spans.install(driver.span_targets(), sync=cuda)
         load = os.getloadavg()
         try:
             with GcSpans() as gcs:
                 calls = measure(driver, seconds, driver.warmup_calls,
-                                stretches(seconds) if dev else 1,
-                                dev.stretch if dev else None)
+                                stretches(seconds) if trace else 1,
+                                traced_stretch(rows, dev) if trace else None,
+                                dev.max_calls if dev else
+                                STRETCH_CALLS if trace else None)
         finally:
             if spans:
                 spans.remove()
@@ -219,7 +248,7 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float,
     checks, attempted, failed = driver.check()
     rec = Record(setup_s=setup_s, calls=calls, spans=spans,
                  device=dev if dev and dev.measured else None,
-                 bound_s=driver.bound_s)
+                 bound_s=driver.bound_s, program=rows)
     kind = "per_layer" if trace else "end_to_end"
     metrics = [(m, load_reader(m["name"])(rec))
                for m in cell_metrics(bench, cell, kind)]
@@ -229,6 +258,8 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float,
     if cuda:
         info["power_limit"] = power_limit(device.index or 0)
     breakdown = None
+    if rows is not None:
+        print(rows.describe(), file=sys.stderr)
     if dev:
         print(dev.describe(), file=sys.stderr)
     if rec.device is not None:

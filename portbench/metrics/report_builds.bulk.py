@@ -5,7 +5,4 @@ from portbench import program_spans
 
 
 def read(rec):
-    rows = program_spans.window_rows(rec)
-    if rows is None or "bank.report_builds" not in rows[0].counters:
-        return None
-    return sum(r.counters["bank.report_builds"] for r in rows) / rec.n_calls
+    return program_spans.counter_per_call(rec, "bank.report_builds")

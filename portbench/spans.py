@@ -12,28 +12,31 @@ Garbage collections (every run): :class:`GcSpans`, the one recorder of
 the interpreter's collections, read by the window's diagnostic line and
 by the traced run's idle gaps (``gc``).
 
-Device: ``torch.profiler`` with CUDA activity only, exported as a
-Chrome trace and read back.  A ``spin_kernel`` (``torch.cuda._sleep``)
-launched at a recorded host time on each end of a profiled stretch ties
-the trace's clock to the host's and marks the stretch; a third, on the
-benchmark's side stream (a stream of its own where the driver has
-none), names that stream, so the benchmark's own device work (the bulk
-mix's fingerprints) is told apart from the program's and left out of
-every reading.
+Device: ``torch.profiler`` with CUDA activity only, its runtime calls
+and device operations read from the profiler's own events
+(:func:`profiled`; no trace file).  A ``spin_kernel``
+(``torch.cuda._sleep``) launched at a recorded host time on each end of
+a profiled stretch ties the trace's clock to the host's and marks the
+stretch; a third, on the benchmark's side stream (a stream of its own
+where the driver has none), names that stream, so the benchmark's own
+device work (the bulk mix's fingerprints) is told apart from the
+program's and left out of every reading.
 
 :class:`DeviceWindow` profiles the window as a few such stretches, each
 a profiler session of its own started and stopped between calls: a
 session whose trace lacks its marks or the program's work is left out,
-with the calls it covered, and the others still read.
+with the calls it covered, and the others still read.  The harness ends
+a stretch at a share of the window's time or at the count of calls
+:meth:`DeviceWindow.max_calls` gives (``harness.measure``), so that a
+session's trace stays as small as those that kept their marks.
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
+import functools
 import gc
-import json
-import os
-import tempfile
 import time
 
 import torch
@@ -41,10 +44,21 @@ import torch
 MARK_CYCLES = 20_000
 #: the wait after a profiler session starts and before it stops (s): the
 #: trace keeps only device work that its clock puts inside the session,
-#: and the device's clock reads up to some milliseconds off the host's,
-#: so a mark launched at once can fall outside and be lost
-SETTLE_S = 0.1
+#: and the device's clock reads up to some milliseconds off the host's
+#: (medians of -3 to +0.4 ms between a launch and its kernel in traced
+#: bulk runs), so a mark launched at once can fall outside and be lost
+SETTLE_S = 0.03
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the profiler events a session may hold: sessions of up to ~25,000
+#: (800 bulk calls, 40 128-bit serve calls) kept their three marks in
+#: every traced run, sessions of 45,000-70,000 (128-bit serve calls cut
+#: by time alone, 2,800 32-bit bulk calls) lost them in about half
+SESSION_EVENTS = 20_000
+#: the calls of a window's first session, before any has been counted
+FIRST_SESSION_CALLS = 40
+#: the most calls of any session (the 381-bit bulk cell's ~1,050 calls a
+#: session kept 20 of 20)
+SESSION_CALLS = 800
 
 
 class HostSpans:
@@ -145,6 +159,7 @@ class DeviceTrace:
         self.start_s = self.end_s = None   # the window in trace time
         self.counts = {}             # what the trace held, for stderr
         self.n_calls = 0             # the calls inside the stretch
+        self._busy = {}              # busy_intervals, by program_only
 
     def start(self) -> None:
         self.prof = torch.profiler.profile(
@@ -160,18 +175,12 @@ class DeviceTrace:
         self._host_marks.append(_mark())
         time.sleep(SETTLE_S)
         self.prof.__exit__(None, None, None)
-        fd, path = tempfile.mkstemp(suffix=".json")
-        os.close(fd)
-        try:
-            self.prof.export_chrome_trace(path)
-            with open(path) as f:
-                trace = json.load(f)
-        finally:
-            os.unlink(path)
+        result = self.prof.profiler.kineto_results
         self.prof = None
-        self._read(trace.get("traceEvents", []))
+        self._take(*profiled(result))
 
     def _read(self, events) -> None:
+        """Read a Chrome trace's events (``traceEvents``)."""
         launches = {}                # correlation -> host launch ts (us)
         device = []
         for e in events:
@@ -183,11 +192,17 @@ class DeviceTrace:
             elif e.get("cat") in _DEVICE_CATS:
                 device.append((e.get("name", "?"), e["ts"], e.get("dur", 0),
                                args.get("stream"), args.get("correlation")))
+        self._take(launches, device, len(events))
+
+    def _take(self, launches: dict, device: list, n_events: int) -> None:
+        """Read a session's runtime launches (``{correlation: host ts}``)
+        and device operations (``(name, ts, dur, stream, correlation)``,
+        times in microseconds on the trace's clock)."""
         device.sort(key=lambda d: d[1])
         marks = [d for d in device if "spin_kernel" in d[0]]
         lags = sorted(ts - launches[c] for _, ts, _, _, c in device
                       if c in launches)
-        self.counts = {"events": len(events), "runtime": len(launches),
+        self.counts = {"events": n_events, "runtime": len(launches),
                        "device": len(device), "marks": len(marks),
                        "lag_ms": lags[len(lags) // 2] * 1e-3 if lags else None}
         if len(marks) < 3:
@@ -220,6 +235,8 @@ class DeviceTrace:
         """Merged device-busy intervals in trace time: of every stream, or
         of the program's alone (every stream but the benchmark's side
         stream)."""
+        if program_only in self._busy:
+            return self._busy[program_only]
         merged = []
         for s, e in sorted((t, t + d) for _, t, d, st in self.events
                            if not (program_only and st == self.side_id)):
@@ -227,6 +244,7 @@ class DeviceTrace:
                 merged[-1][1] = max(merged[-1][1], e)
             else:
                 merged.append([s, e])
+        self._busy[program_only] = merged
         return merged
 
     def busy_s(self, program_only: bool = False) -> float:
@@ -242,21 +260,19 @@ class DeviceTrace:
                 total[_short(name)] += dur
         return [[name, secs] for name, secs in total.most_common(n)]
 
+    def gaps(self, n: int = 10) -> list:
+        """The ``n`` longest gaps in the program's device work in the
+        window: ``(seconds, start on the host's clock)`` each."""
+        busy = self.busy_intervals(program_only=True)
+        edges = [self.start_s] + [x for iv in busy for x in iv] + [self.end_s]
+        return sorted(((edges[i + 1] - edges[i], edges[i] + self.offset_s)
+                       for i in range(0, len(edges) - 1, 2)
+                       if edges[i + 1] > edges[i]), reverse=True)[:n]
+
     def idle_gaps(self, host_spans, calls, call_label, n: int = 10) -> list:
         """The ``n`` longest gaps in the program's device work in the
         window, each named by what the host was doing over most of it."""
-        busy = self.busy_intervals(program_only=True)
-        edges = [self.start_s] + [x for iv in busy for x in iv] + [self.end_s]
-        gaps = sorted(((edges[i + 1] - edges[i], edges[i])
-                       for i in range(0, len(edges) - 1, 2)
-                       if edges[i + 1] > edges[i]), reverse=True)[:n]
-        out = []
-        for length, start in gaps:
-            g0 = start + self.offset_s
-            g1 = g0 + length
-            out.append([_label(g0, g1, host_spans, calls, call_label),
-                        length])
-        return out
+        return label_gaps(self.gaps(n), host_spans, calls, call_label)
 
 
 class DeviceWindow:
@@ -267,21 +283,36 @@ class DeviceWindow:
         self.side_stream = side_stream
         self.parts = []              # the sessions that measured
         self.log = []                # what each session's trace held
+        self.cost_s = 0.0            # sessions' starts, stops and reading
+        self.calls_cap = FIRST_SESSION_CALLS   # of the next session
 
     @contextlib.contextmanager
     def stretch(self, calls: list):
         """Profile the calls appended to ``calls`` inside the block."""
         part = DeviceTrace(self.side_stream)
         first = len(calls)
+        t0 = time.perf_counter()
         part.start()
+        t1 = time.perf_counter()
         try:
             yield
         finally:
+            t2 = time.perf_counter()
             part.stop()
+            self.cost_s += t1 - t0 + time.perf_counter() - t2
         part.n_calls = len(calls) - first
+        events = part.counts.get("events")
+        if part.n_calls and events:  # the next session: SESSION_EVENTS
+            self.calls_cap = max(1, min(
+                SESSION_CALLS, SESSION_EVENTS * part.n_calls // events))
         self.log.append(part.counts)
         if part.measured:
             self.parts.append(part)
+
+    def max_calls(self) -> int:
+        """The calls of the next session: as many as keep it near
+        :data:`SESSION_EVENTS`, at the last session's events a call."""
+        return self.calls_cap
 
     @property
     def measured(self) -> bool:
@@ -306,18 +337,63 @@ class DeviceWindow:
         return [[name, secs] for name, secs in total.most_common(n)]
 
     def idle_gaps(self, host_spans, calls, call_label, n: int = 10) -> list:
-        gaps = [g for p in self.parts
-                for g in p.idle_gaps(host_spans, calls, call_label, n)]
-        return sorted(gaps, key=lambda g: g[1], reverse=True)[:n]
+        gaps = sorted((g for p in self.parts for g in p.gaps(n)),
+                      reverse=True)[:n]
+        return label_gaps(gaps, host_spans, calls, call_label)
 
     def describe(self) -> str:
         """One line: each session's counts, and which were left out."""
         return (f"device trace: {len(self.parts)} of {len(self.log)} "
-                f"sessions measured; " + "; ".join(
+                f"sessions measured, {self.cost_s:.3f} s in their starts, "
+                f"stops and reading; " + "; ".join(
                     ", ".join(f"{k} {v}" for k, v in counts.items())
                     for counts in self.log))
 
 
+def profiled(result) -> tuple:
+    """``(launches, device, n_events)`` of a finished session, as
+    :meth:`DeviceTrace._take` reads them, from the profiler's own events
+    (writing the Chrome trace and parsing it back cost about 1 ms a call
+    of a bulk window).  A device operation is an event on the card; a
+    runtime launch, a host event named ``cuda...`` (the profiler's own
+    host events, such as module loading, share the correlation of the
+    call that caused them).  Times in microseconds from the session's
+    start."""
+    base = result.trace_start_ns()
+    cuda = torch.autograd.DeviceType.CUDA
+    launches, device = {}, []
+    events = result.events()
+    for e in events:
+        if e.device_type() == cuda:
+            device.append((e.name(), (e.start_ns() - base) * 1e-3,
+                           e.duration_ns() * 1e-3, e.device_resource_id(),
+                           e.correlation_id()))
+        elif e.name().startswith("cuda"):
+            launches[e.correlation_id()] = (e.start_ns() - base) * 1e-3
+    return launches, device, len(events)
+
+
+def label_gaps(gaps, host_spans, calls, call_label) -> list:
+    """``[name, seconds]`` of each ``(seconds, host start)`` gap, named
+    by :func:`_label` from the host spans and calls near it alone (found
+    by bisection, so that a window's many calls cost no scan a gap)."""
+    spans = sorted(host_spans, key=lambda sp: sp[1])
+    span_starts = [t0 for _, t0, _ in spans]
+    span_reach = max((t1 - t0 for _, t0, t1 in spans), default=0.0)
+    call_starts = [t0 for t0, _, _ in calls]
+    call_reach = max((t1 - t0 for t0, t1, _ in calls), default=0.0)
+    out = []
+    for length, g0 in gaps:
+        g1 = g0 + length
+        near = spans[bisect.bisect_left(span_starts, g0 - span_reach):
+                     bisect.bisect_right(span_starts, g1)]
+        inside = calls[bisect.bisect_left(call_starts, g0 - call_reach):
+                       bisect.bisect_right(call_starts, g1)]
+        out.append([_label(g0, g1, near, inside, call_label), length])
+    return out
+
+
+@functools.cache
 def _short(name: str) -> str:
     """A kernel's name up to its argument list: the first ``(`` outside
     the template brackets."""
