@@ -485,15 +485,19 @@ def phase_card():
     return smi
 
 
-def round_blocks(design_name, device):
-    """The fused blocks of a B = B_TIME round of a registry design: the
-    design, its per-instance op counts, rows a block and super-geometry."""
+def round_rows(design_name, device):
+    """A B = B_TIME round of a registry design as its fused launch takes
+    it: the design, its per-instance op counts, the round's owner table
+    on ``device`` and the super-geometry."""
     from repro_torch import designs
+    from repro_torch.core.bank.schedule import get_scheduler
     from repro_torch.kernels import bank_fold as BF
     d = designs.generate(design_name, device=device)
     n_ops = [i.n_ops for i in d.report(B_TIME).instances]
-    rows, _ = BF.fused_block_rows([range(n) for n in n_ops])
-    return d, n_ops, rows, BF.super_geometry(d.bank.instances, d.la, d.lb)
+    assign, _ = get_scheduler(d.spec.scheduler).schedule(
+        tuple(c.ct for c in d.bank.instances), B_TIME)
+    owner = torch.from_numpy(BF.fused_owner(assign, B_TIME)).to(device)
+    return d, n_ops, owner, BF.super_geometry(d.bank.instances, d.la, d.lb)
 
 
 def print_bulk_plans():
@@ -702,10 +706,10 @@ def phase_kernels(device):
     ref_fold = "src/repro/kernels/mcim_fold/kernel.py"
 
     for design_name in ("tp3p5_w32", "tp5over6_w128"):
-        d, n_ops, rows, sg = round_blocks(design_name, device)
+        d, n_ops, owner, sg = round_rows(design_name, device)
         check(d.bank.backend == "fused", f"{design_name}: auto is not fused")
         table = torch.from_numpy(sg.table()).to(device)
-        a, b = operands(rng, (sg.n_instances, rows), d.spec.bits_a, device)
+        a, b = operands(rng, (B_TIME,), d.spec.bits_a, device)
         contract = dataflow.round_contract(d.spec.bits_a, d.spec.bits_b,
                                            d.plan.configs, B_TIME,
                                            d.spec.scheduler)
@@ -717,12 +721,12 @@ def phase_kernels(device):
             "bank_fold" if design_name == "tp3p5_w32"
             else f"bank_fold/{design_name}", "bank_fold", src_bank,
             "src/repro/kernels/bank_fold/kernel.py:44",
-            BF.fused_bank_mul, BF.fused_bank_mul_ref, (a, b, table),
-            contract, library=lib)
+            BF.fused_bank_rows, BF.fused_bank_mul_ref,
+            (a, b, owner, table), contract, library=lib)
         other_path(entry, BF.fused_bank_mul_kernel, BF.fused_bank_mul_ref,
-                   (a, b, table), BF.launch_plan(
-                       sg.n_instances, rows, d.la, d.lb, True))
-        add_cold(entry, BF.fused_bank_mul, (a, b, table),
+                   (a, b, owner, table), BF.launch_plan(
+                       sg.n_instances, B_TIME, d.la, d.lb, True))
+        add_cold(entry, BF.fused_bank_rows, (a, b, owner, table),
                  None if lib is None else torch.mul, (pa, pb))
         entries.append(entry)
         rounds[design_name] = entry
@@ -989,8 +993,7 @@ def phase_rounds(device, rounds):
         round_ms = cuda_ms(lambda: d.mul(a, b), iters=10)
         core_ms = cuda_ms(lambda: core.execute(a, b), iters=2, warmup=1)
         # the round's two layers: host cycle accounting (Bank.report,
-        # run by every execute) and the device dispatch (gather, kernel,
-        # gather back)
+        # run by every execute) and the device dispatch (the one launch)
         t0 = time.perf_counter()
         d.bank.report(B_TIME)
         report_ms = (time.perf_counter() - t0) * 1e3
@@ -1128,8 +1131,8 @@ def serve_run(label, spec, reqs, device, scaler=None, **kw):
             host["report_s"] += time.perf_counter() - t0
 
     def counted_execute(self, a, b):
-        # the launches this round must make, then its host time (report,
-        # gathers and launch enqueued) and its wait for the device (the
+        # the launches this round must make, then its host time (report
+        # and launch enqueued) and its wait for the device (the
         # worker's copy back synchronises right after in any case)
         host["launches_due"] += self.launch_count(a.shape[0])
         t0 = time.perf_counter()
@@ -3715,13 +3718,15 @@ def gate_round_host(device, rounds):
               f"{report_ms:.4f} ms, dispatch enqueue (host) "
               f"{statistics.median(enqueue):.4f} ms")
     # the op against the raw launch, one small fused round (2 x 256 rows)
-    a, b = operands(rng, (2, 256), 32, device)
+    a, b = operands(rng, (512,), 32, device)
+    owner = torch.arange(2, dtype=torch.int32,
+                         device=device).repeat_interleave(256)
     table = torch.tensor([[[0, 2]], [[0, 2]]], dtype=torch.int32,
                          device=device)
-    out = torch.empty((2, 256, 4), dtype=torch.int32, device=device)
-    path = BF.launch_plan(2, 256, 2, 2, _row_tiles.is_aligned(a, b))
+    out = torch.empty((512, 4), dtype=torch.int32, device=device)
+    path = BF.launch_plan(2, 512, 2, 2, _row_tiles.is_aligned(a, b))
     fn = _build.launcher("bank_fold", "bank_fold_bulk_launch"
-                         if path == "bulk" else "bank_fold_launch", 4, 5)
+                         if path == "bulk" else "bank_fold_launch", 5, 5)
 
     def host_us(call, n=300):
         call()
@@ -3732,10 +3737,11 @@ def gate_round_host(device, rounds):
         per = (time.perf_counter() - t0) / n * 1e6
         torch.cuda.synchronize()
         return per
-    op_us = host_us(lambda: BF.fused_bank_mul(a, b, table))
+    op_us = host_us(lambda: BF.fused_bank_rows(a, b, owner, table))
     raw_us = host_us(lambda: _build.launch(
-        "bank_fold", fn, (a, b, table, out), (2, 256, 2, 2, 1), path=path))
-    print(f"  13e host a call: fused_bank_mul through the custom op "
+        "bank_fold", fn, (a, b, owner, table, out), (2, 512, 2, 2, 1),
+        path=path))
+    print(f"  13e host a call: fused_bank_rows through the custom op "
           f"{op_us:.1f} us, the raw launch {raw_us:.1f} us "
           f"(op dispatch, checks and output allocation "
           f"{op_us - raw_us:.1f} us)")

@@ -6,7 +6,9 @@
     python3 scripts/row_tiles_bench.py DIR -k FB   # only the FB shapes
 
 Builds DIR's ``src/repro_torch/csrc/{bank_fold,mcim_fold,karatsuba_ppm}.cu``
-and calls their C entry points (``bank_fold_launch``, FB's and FF's
+and calls their C entry points (``bank_fold_launch``, on a round's rows
+in batch order with their owners, or, in commits before that form, on
+the same rows as per-instance blocks; FB's and FF's
 ``mcim_fold_launch``, or ``mcim_fold_{fb,ff}_launch`` in commits before
 the two shared one kernel, the folded Karatsuba's
 ``mcim_fold_karatsuba_launch``, ``karatsuba_ppm_launch``, and their bulk
@@ -49,7 +51,8 @@ def stream():
 
 def other_kernels(parent):
     """{symbol: ctypes function} of another commit's entry points (a
-    bulk entry point it lacks is None)."""
+    bulk entry point it lacks is None), and whether its bank_fold takes
+    an owner table."""
     from repro_torch.kernels import _build
     src = pathlib.Path(parent) / "src" / "repro_torch" / "csrc"
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -60,10 +63,12 @@ def other_kernels(parent):
         for n in SOURCES}
     check(all(p.wait() == 0 for p in procs.values()), "other build failed")
     libs = {n: ctypes.CDLL(str(BUILD / f"other_{n}.so")) for n in SOURCES}
+    owners = "const void* owner" in (src / "bank_fold.cu").read_text()
+    bank_ptrs = 5 if owners else 4
     fns = {}
     for lib, symbol, n_ptrs, n_ints in (
-            ("bank_fold", "bank_fold_launch", 4, 5),
-            ("bank_fold", "bank_fold_bulk_launch", 4, 5),
+            ("bank_fold", "bank_fold_launch", bank_ptrs, 5),
+            ("bank_fold", "bank_fold_bulk_launch", bank_ptrs, 5),
             ("mcim_fold", "mcim_fold_launch", 3, 3),
             ("mcim_fold", "mcim_fold_bulk_launch", 3, 3),
             ("mcim_fold", "mcim_fold_fb_launch", 3, 5),
@@ -78,13 +83,14 @@ def other_kernels(parent):
                            + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         fns[symbol] = fn
-    return fns
+    return fns, owners
 
 
 def cases(dev, rng):
-    """(label, kind, operands, ct): kind "bank" takes 3 operands, "fb",
-    "ff", "karatsuba" (the folded Karatsuba) and "kara" (the spatial
-    one) 2."""
+    """(label, kind, operands, ct): kind "bank" takes 4 operands (a
+    round's rows, instance i's R rows after instance i - 1's, their
+    owners and the table), "fb", "ff", "karatsuba" (the folded
+    Karatsuba) and "kara" (the spatial one) 2."""
     def view(x, offset=1):   # the same values, `offset` words off 16 bytes
         flat = torch.zeros(x.numel() + offset, dtype=torch.int32,
                            device=dev)
@@ -95,12 +101,14 @@ def cases(dev, rng):
         return torch.tensor(rows, dtype=torch.int32, device=dev)
 
     def bank(label, n_inst, rows, bits_a, bits_b, tbl):
-        a = operands(rng, (n_inst, rows), bits_a, dev)[0]
-        b = operands(rng, (n_inst, rows), bits_b, dev)[1]
-        yield label, "bank", (a, b, table(tbl)), None
+        a = operands(rng, (n_inst * rows,), bits_a, dev)[0]
+        b = operands(rng, (n_inst * rows,), bits_b, dev)[1]
+        owner = torch.arange(n_inst, dtype=torch.int32,
+                             device=dev).repeat_interleave(rows)
+        yield label, "bank", (a, b, owner, table(tbl)), None
         if bits_a == bits_b and bits_a > 16:
             yield (f"{label}, views 4 B off", "bank",
-                   (view(a), view(b), table(tbl)), None)
+                   (view(a), view(b), owner, table(tbl)), None)
 
     yield from bank("bank_fold tp3p5_w32 4x300032x2", 4, 300_032, 32, 32,
                     TP3P5_TABLE)
@@ -176,7 +184,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", torch.cuda.current_device())
-    fns = other_kernels(args.other)
+    fns, owners = other_kernels(args.other)
 
     def call(symbol, ptrs, ints):
         """DIR's bulk entry point where it has one and takes the launch,
@@ -189,14 +197,19 @@ def main():
 
     def old(kind, ct, *ops):
         if kind == "bank":
-            a, b, t = ops
-            n, rows, la = a.shape
-            lb = b.shape[-1]
-            out = torch.empty((n, rows, la + lb), dtype=torch.int32,
+            a, b, owner, t = ops
+            (batch, la), lb, n = a.shape, b.shape[-1], t.shape[0]
+            out = torch.empty((batch, la + lb), dtype=torch.int32,
                               device=dev)
-            call("bank_fold_launch", (a.data_ptr(), b.data_ptr(),
-                                      t.data_ptr(), out.data_ptr()),
-                 (n, rows, la, lb, t.shape[1]))
+            if owners:
+                call("bank_fold_launch", (a.data_ptr(), b.data_ptr(),
+                                          owner.data_ptr(), t.data_ptr(),
+                                          out.data_ptr()),
+                     (n, batch, la, lb, t.shape[1]))
+            else:                # the same rows as per-instance blocks
+                call("bank_fold_launch", (a.data_ptr(), b.data_ptr(),
+                                          t.data_ptr(), out.data_ptr()),
+                     (n, batch // n, la, lb, t.shape[1]))
             return out
         a, b = ops
         (bsz, la), lb = a.shape, b.shape[1]
@@ -216,7 +229,7 @@ def main():
 
     def new(kind, ct, *ops):
         if kind == "bank":
-            return BF.fused_bank_mul(*ops)
+            return BF.fused_bank_rows(*ops)
         if kind == "kara":
             return KP.karatsuba_ppm_mul(*ops)
         return MF.mcim_fold_mul(*ops, ct=ct, schedule=kind)
@@ -224,7 +237,8 @@ def main():
     def path(kind, ops):
         aligned = _row_tiles.is_aligned(*ops[:2])
         if kind == "bank":
-            return BF.launch_plan(*ops[0].shape, ops[1].shape[-1], aligned)
+            return BF.launch_plan(ops[3].shape[0], *ops[0].shape,
+                                  ops[1].shape[-1], aligned)
         if kind == "kara":
             return KP.launch_plan(ops[0].shape[0], ops[0].shape[1], aligned)
         if kind == "karatsuba":

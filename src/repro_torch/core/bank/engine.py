@@ -10,8 +10,10 @@ issues work to the silicon bank.  The engine is
   * cycle-accounted: the dispatch schedule is simulated once per batch
     size, giving per-instance busy cycles and the bank makespan, and the
     report is kept per batch size;
-  * static per batch size: dispatch is gathers, kernel launches and a
-    gather back, with the index tensors built once on the bank's device.
+  * static per batch size: on "fused" dispatch is one launch over the
+    batch's rows with an owner table, on "kernel" gathers, a launch an
+    instance and a scatter back, with the index tensors built once on
+    the bank's device.
 """
 from __future__ import annotations
 

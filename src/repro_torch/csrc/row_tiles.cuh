@@ -11,10 +11,17 @@
 //   lane of the warp calling it, once a tile;
 // * `product(a, b, w, cols, n)`: the row's product, (M, M) limbs -> 2M
 //   columns, carried to canonical limbs over columns [0, n).
+// A functor whose state is a row's rather than a tile's declares
+// `static constexpr bool kByRow = true` and supplies, in place of the
+// weights, `row_owner(row)` (the instance that computes row `row`) and
+// `row_weights(owner, w)` (that instance's state); the walks then look
+// the state up row by row (bank_fold's rows in batch order). Which of
+// the two a walk does is fixed by the functor's type at compile time, so
+// the other functors compile to the walks they always had.
 // bank_fold, FB and FF multiply by one weighted schoolbook (`schoolbook`
-// below): their state is how many of a tile's steps take each B limb
-// (FB and FF: 1 for every limb; bank_fold: the windows of the
-// instance's schedule table that hold it). Weighting a limb once a tile
+// below): their state is how many of a fold's steps take each B limb
+// (FB and FF: 1 for every limb; bank_fold: the windows of the row's
+// instance's schedule table that hold it). Weighting a limb once
 // costs fewer instructions than looping over the steps for every row,
 // and the bits are the same (see ppm_weighted). Both Karatsuba kernels
 // share one functor (kara_rows.cuh, KaraRows), which keeps no state and
@@ -44,9 +51,19 @@
 //   neighbouring words.
 #pragma once
 
+#include <type_traits>
+
 #include "limbs.cuh"
 
 namespace tiles {
+
+// Whether a row functor's state is looked up row by row (it declares
+// `static constexpr bool kByRow = true`), rather than once a tile.
+template <class Fold, class = void>
+struct ByRow : std::false_type {};
+template <class Fold>
+struct ByRow<Fold, std::void_t<decltype(Fold::kByRow)>>
+    : std::bool_constant<Fold::kByRow> {};
 
 // shared memory a block may use on the H100
 constexpr size_t kSmemLimit = 232448;
@@ -219,17 +236,19 @@ __device__ __forceinline__ void write_row(uint32_t* tile, int r,
 // c[jb] the number of a fold's steps whose window holds jb this equals,
 // bit for bit, the fold's loop of windowed partial products (the limbs
 // of each step's window, once a step): uint32 column sums are sums mod
-// 2**32, so c copies of a term add c times the term. B limbs of weight 0
-// add nothing and are skipped (a test the same for every thread of a
-// warp).
-template <int M>
+// 2**32, so c copies of a term add c times the term. With kSkipZero, B
+// limbs of weight 0 add nothing and are skipped (a test the same for
+// every thread of a warp where the weights are a tile's); weights looked
+// up by row multiply as they are, so lanes of other instances take the
+// same instructions.
+template <int M, bool kSkipZero = true>
 __device__ __forceinline__ void ppm_weighted(const uint32_t (&a)[M],
                                              const uint32_t (&b)[M],
                                              const uint32_t (&c)[M],
                                              uint32_t (&acc)[2 * M]) {
 #pragma unroll
   for (int jb = 0; jb < M; ++jb) {
-    if (c[jb] == 0) continue;
+    if (kSkipZero && c[jb] == 0) continue;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
       const uint32_t p = a[i] * b[jb];  // exact 16x16 -> 32
@@ -289,11 +308,11 @@ __device__ __forceinline__ void schoolbook_by_columns(
   cols[2 * M - 1] = (uint32_t)sum & limbs::kMask;
 }
 
-// The row product of a fold whose tile state is limb weights (bank_fold,
+// The row product of a fold whose state is limb weights (bank_fold,
 // FB, FF): one weighted schoolbook pass, then one carry pass over
 // columns [0, n) (rows wider than 16 limbs: schoolbook_by_columns, every
-// column carried).
-template <int M>
+// column carried). kSkipZero: as in ppm_weighted.
+template <int M, bool kSkipZero = true>
 __device__ __forceinline__ void schoolbook(const uint32_t (&a)[M],
                                            const uint32_t (&b)[M],
                                            const uint32_t (&w)[M],
@@ -303,8 +322,20 @@ __device__ __forceinline__ void schoolbook(const uint32_t (&a)[M],
   } else {
 #pragma unroll
     for (int c = 0; c < 2 * M; ++c) cols[c] = 0u;
-    ppm_weighted<M>(a, b, w, cols);
+    ppm_weighted<M, kSkipZero>(a, b, w, cols);
     carry_pass<2 * M>(cols, n);
+  }
+}
+
+// The owners of this thread's rows (t, t + T, ...) of a tile of n rows
+// from row `first`, for a functor of ByRow (0 past the tile's end).
+template <int R, int T, class Fold>
+__device__ __forceinline__ void tile_owners(const Fold& fold, size_t first,
+                                            int n, int (&o)[R]) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    o[k] = tid + k * T < n ? fold.row_owner(first + tid + k * T) : 0;
   }
 }
 
@@ -315,7 +346,9 @@ __device__ __forceinline__ void schoolbook(const uint32_t (&a)[M],
 // contiguous). Needs 16-byte-aligned a, b, out, rows * L a multiple of
 // 4 (so that every tile's spans are whole 16-byte units) and n_inst *
 // tiles an instance below 2**31; `smem` holds Bulk<L>::kBytes bytes.
-// Every thread calls fold.warp_weights once a tile.
+// Every thread calls fold.warp_weights once a tile; for a functor of
+// ByRow, it loads the owners of its rows of the next tile while this one
+// computes, and looks each row's weights up by its owner.
 template <int L, class Fold>
 __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
                                           const uint32_t* __restrict__ b,
@@ -359,6 +392,14 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int it = 0; it < min(stages, mine); ++it) issue(it, it);
   }
+  [[maybe_unused]] int own[R], next[R];
+  if constexpr (ByRow<Fold>::value) {
+    if (mine > 0) {
+      int inst, row0, n;
+      tile(0, inst, row0, n);
+      tile_owners<R, T>(fold, (size_t)inst * rows + row0, n, next);
+    }
+  }
   __syncthreads();
   int s = 0;
   uint32_t phase = 0;
@@ -366,8 +407,18 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
     int inst, row0, n;
     tile(it, inst, row0, n);
     const uint32_t* sa = ring + s * stage_words;
-    uint32_t wt[L];  // the state of the tile's instance
-    fold.warp_weights(inst, wt);
+    [[maybe_unused]] uint32_t wt[L];  // the state of the tile's instance
+    if constexpr (ByRow<Fold>::value) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) own[k] = next[k];
+      if (it + 1 < mine) {
+        int inst1, row1, n1;
+        tile(it + 1, inst1, row1, n1);
+        tile_owners<R, T>(fold, (size_t)inst1 * rows + row1, n1, next);
+      }
+    } else {
+      fold.warp_weights(inst, wt);
+    }
     mbar_wait(bars + 8u * s, phase);
     uint32_t av[R][L], bv[R][L];
 #pragma unroll
@@ -389,7 +440,13 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
       const int r = tid + k * T;
       if (r < n) {
         uint32_t acc[W];
-        fold.product(av[k], bv[k], wt, acc, W);
+        if constexpr (ByRow<Fold>::value) {
+          uint32_t w[L];
+          fold.row_weights(own[k], w);
+          fold.product(av[k], bv[k], w, acc, W);
+        } else {
+          fold.product(av[k], bv[k], wt, acc, W);
+        }
         if constexpr (kSlots == 0) {  // one 16-byte product a row
           reinterpret_cast<uint4*>(out)[first + r] =
               make_uint4(acc[0], acc[1], acc[2], acc[3]);
@@ -412,7 +469,8 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
 }
 
 // The per-thread path: tile `k` (rows k*blockDim.x ...) of instance
-// `inst`, any widths up to MAXL limbs, any 4-byte alignment. A thread
+// `inst`, any widths up to MAXL limbs, any 4-byte alignment (a functor of
+// ByRow takes each row's state by its owner). A thread
 // loads its row's limbs straight from device memory: a warp's LA loads
 // at a stride of LA words fall on the same lines, which L1 serves after
 // the first. Products of at most 4 words (MAXL = 2) are stored the same
@@ -437,7 +495,11 @@ __device__ __forceinline__ void coalesced_tile(
     limbs::load_row<MAXL>(a + row * la, la, av);
     limbs::load_row<MAXL>(b + row * lb, lb, bv);
   }
-  fold.weights(inst, w);
+  if constexpr (ByRow<Fold>::value) {
+    if (live) fold.row_weights(fold.row_owner(row), w);
+  } else {
+    fold.weights(inst, w);
+  }
   if (live) fold.product(av, bv, w, acc, lo);
   if constexpr (MAXL == 2) {
     if (live) {
@@ -523,16 +585,17 @@ cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
 }
 
 // The shape of a bulk kernel of L limbs on this device, for reports:
-// info = {threads, tile rows, stages, shared bytes, grid blocks}.
+// info = {threads, tile rows, stages, shared bytes, grid blocks}
+// (`extra_max`: as in bulk_launch_shape; the shared bytes are the most).
 template <int L, class Kernel>
-cudaError_t bulk_shape(Kernel kernel, int* info) {
+cudaError_t bulk_shape(Kernel kernel, int* info, size_t extra_max = 0) {
   using B = Bulk<L>;
   info[0] = B::kThreads;
   info[1] = B::kTileRows;
   info[2] = B::kStages;
-  info[3] = (int)B::kBytes;
-  return resident_blocks(kernel, B::kThreads, B::kBytes, B::kPerSm,
-                         info + 4);
+  info[3] = (int)(B::kBytes + extra_max);
+  return resident_blocks(kernel, B::kThreads, B::kBytes + extra_max,
+                         B::kPerSm, info + 4);
 }
 
 inline bool aligned16(const void* p) {
@@ -544,22 +607,27 @@ inline bool aligned16(const void* p) {
 // bytes}, the persistent grid min(tiles, resident blocks). Returns
 // cudaErrorInvalidValue where the bulk path does not take the rows (rows
 // * L not a multiple of 4, or 2**31 tiles or more). The bulk launchers
-// launch what it returns; `*_launch_shape` exports it.
+// launch what it returns; `*_launch_shape` exports it. A kernel that
+// keeps `extra` bytes of its own after the walk's Bulk<L>::kBytes, at
+// most `extra_max` in any launch, is held resident at the most (the
+// occupancy query, and the kernel's shared memory limit, are made once
+// a kernel, with the same bytes every time).
 template <int L, class Kernel>
 cudaError_t bulk_launch_shape(Kernel kernel, long long n_inst,
-                              long long rows, int* info) {
+                              long long rows, int* info, size_t extra = 0,
+                              size_t extra_max = 0) {
   using B = Bulk<L>;
   const long long total =
       n_inst * ((rows + B::kTileRows - 1) / B::kTileRows);
   if (total >= (1LL << 31) || rows * L % 4) return cudaErrorInvalidValue;
   int blocks = 0;
-  const cudaError_t err = resident_blocks(kernel, B::kThreads, B::kBytes,
-                                          B::kPerSm, &blocks);
+  const cudaError_t err = resident_blocks(
+      kernel, B::kThreads, B::kBytes + extra_max, B::kPerSm, &blocks);
   if (err != cudaSuccess) return err;
   info[0] = (int)(total < blocks ? total : blocks);
   info[1] = 1;
   info[2] = B::kThreads;
-  info[3] = (int)B::kBytes;
+  info[3] = (int)(B::kBytes + extra);
   return cudaSuccess;
 }
 

@@ -41,6 +41,11 @@ H100_SMS = 132
 H100_BULK_FIT = {"bank_fold": {2: 8, 4: 4, 8: 2, 16: 2, 24: 2},
                  "mcim_fold": {2: 8, 4: 4, 8: 2, 16: 2, 24: 2},
                  "karatsuba_ppm": {2: 8}}
+#: instances a ``bank_fold`` bulk launch takes (``kMaxInstances`` of
+#: ``csrc/bank_fold.cu``): a block keeps each one's limb weights, L words,
+#: in shared memory after the walk's buffers, and is held resident at
+#: this many (:data:`H100_BULK_FIT` counts blocks of that size)
+BULK_INSTANCES = 128
 
 
 def plan(rows: int, la: int, lb: int, aligned: bool) -> str:
@@ -75,16 +80,19 @@ def bulk_constants(limbs: int) -> dict:
             + 8 * stages}
 
 
-def bulk_launch(lib: str, n_inst: int, rows: int, limbs: int) -> tuple:
+def bulk_launch(lib: str, n_inst: int, rows: int, limbs: int,
+                extra: int = 0) -> tuple:
     """(grid, threads, dynamic shared bytes) of a bulk launch over
     ``n_inst`` instances of ``rows`` rows on the H100: the persistent
     grid min(tiles, SMs x blocks an SM), as ``tiles::bulk_launch_shape``
-    computes it.  ``lib``: the source whose bulk kernel it is."""
+    computes it.  ``lib``: the source whose bulk kernel it is; ``extra``:
+    the kernel's own shared bytes after the walk's."""
     c = bulk_constants(limbs)
     fit = H100_BULK_FIT[lib][limbs]
     per_sm = min(c["per_sm"], fit) if c["per_sm"] else fit
     tiles = n_inst * -(-rows // c["tile_rows"])
-    return (min(tiles, H100_SMS * per_sm), 1), c["threads"], c["bytes"]
+    return ((min(tiles, H100_SMS * per_sm), 1), c["threads"],
+            c["bytes"] + extra)
 
 
 def tile_launch(maxl: int, n_inst: int, rows: int, la: int, lb: int

@@ -4,18 +4,19 @@ Counterpart of the reference's ``kernels/bank_fold/ops.py``.
 :func:`make_fused_dispatch` turns a scheduler assignment (which ops run
 on which instance) into a closure ``run(a, b) -> products`` that
 
-  1. gathers each instance's assigned operand rows into a padded
-     ``(N_INST, R, L)`` block (index tensors built once, on the device),
-  2. runs :func:`.kernel.fused_bank_mul` ONCE for the whole round,
-  3. gathers the valid product rows back into batch order, and
-  4. for signed designs, applies the shared two's-complement correction
+  1. runs :func:`.kernel.fused_bank_rows` ONCE for the whole round, on
+     the caller's rows in batch order, with an owner table (built once,
+     on the device) naming the instance that computes each row, and
+  2. for signed designs, applies the shared two's-complement correction
      (:func:`repro_torch.core.mcim.signed_correction`) as torch ops, so
      the round still costs one kernel launch.
 
-Padding rows re-gather op 0's operands; their products are computed and
-never read back, so they cannot overwrite op 0's product.
-:func:`fused_dispatch_maps` builds the gather and read-back maps as
-numpy, so the dispatch and the plan-time gate
+The reference gathers each instance's operand rows into a padded block
+and its products back into batch order; every instance computes the
+exact product, its windows only weighting the schoolbook, so the port
+computes each row where it lies, with its instance's windows, and moves
+nothing around the launch.  :func:`fused_owner` builds the owner table
+as numpy, so the dispatch and the plan-time gate
 (:func:`launch_contract`, :mod:`repro_torch.verify.dataflow`) share one
 construction.
 """
@@ -30,32 +31,28 @@ from repro_torch import telemetry
 from repro_torch.core.mcim import signed_correction
 from repro_torch.kernels.mcim_fold import batch_tile
 from .geometry import super_geometry
-from .kernel import fused_bank_mul, launch_plan
+from .kernel import fused_bank_rows, launch_plan
 
 
 def fused_block_rows(assign) -> tuple:
-    """(rows, tile_r) of the padded per-instance op blocks: the largest
-    assignment padded up to a :func:`batch_tile` multiple, as in the
-    reference (the CUDA kernel masks the row edge itself and needs no
-    tile; the padding keeps the reference's block shapes)."""
+    """(rows, tile_r) of the reference's padded per-instance op blocks:
+    the largest assignment padded up to a :func:`batch_tile` multiple
+    (the port's launch takes the round's rows in batch order and pads
+    nothing)."""
     max_ops = max((len(ops) for ops in assign), default=0)
     max_ops = max(max_ops, 1)         # degenerate all-empty round
     tile_r, pad = batch_tile(max_ops)
     return max_ops + pad, tile_r
 
 
-def fused_dispatch_maps(assign, rows: int, batch: int) -> tuple:
-    """(gather, source) of one round as int64 numpy arrays: ``gather[i,
-    r]`` is the op whose operands row r of instance i's block takes
-    (padding rows take op 0), ``source[op]`` the flat (instance, row)
-    index ``i * rows + r`` its product is read back from."""
-    gather = np.zeros((len(assign), rows), np.int64)
-    source = np.zeros((batch,), np.int64)
+def fused_owner(assign, batch: int) -> np.ndarray:
+    """The round's owner table, ``(batch,)`` int32: ``owner[op] = i`` for
+    every op of ``assign[i]`` (-1 for an op no instance was assigned,
+    which the plan-time gate refuses)."""
+    owner = np.full((batch,), -1, np.int32)
     for i, ops in enumerate(assign):
-        ops = np.asarray(ops, np.int64)
-        gather[i, :len(ops)] = ops
-        source[ops] = i * rows + np.arange(len(ops))
-    return gather, source
+        owner[np.asarray(ops, np.int64)] = i
+    return owner
 
 
 def launch_contract(configs, la: int, lb: int, rows: int = 64,
@@ -63,14 +60,17 @@ def launch_contract(configs, la: int, lb: int, rows: int = 64,
     """Static :class:`~repro_torch.kernels.introspect.LaunchContract`.
 
     Declares the one fused launch of a bank round over ``configs``: the
-    path :func:`.kernel.launch_plan` takes for the round's padded blocks
-    (aligned, as the gathers allocate them), its grid, threads and
-    shared memory on the H100, the concrete window table with the idle
-    steps the super-geometry pads, and the dispatch's gather and source
-    maps.  ``assign`` is the round's scheduler assignment; by default
-    the ``round_robin`` assignment of ``rows`` ops (the reference's
-    hook takes ``rows`` as the block's rows; its ``tile_r``, the TPU
-    row tile, is kept in ``meta`` and pads nothing here).
+    path :func:`.kernel.launch_plan` takes for the round's rows (aligned,
+    as the bank's operands and the launch's output are), its grid,
+    threads and shared memory on the H100, the operands ``a``, ``b``,
+    ``owner`` and ``table`` and the ``(B, LA+LB)`` output, the concrete
+    window table with the idle steps the super-geometry pads, the owner
+    table and the assignment it is held to.  ``assign`` is the round's
+    scheduler assignment; by default the ``round_robin`` assignment of
+    ``rows`` ops (the reference's hook takes ``rows`` as the block's
+    rows; its ``tile_r``, the TPU row tile, pads nothing here and is
+    kept in ``meta`` as given).  The operations are each instance's
+    per-row count over its real rows.
 
     ``table`` overrides the super-geometry's schedule table; the
     override flows into the declaration, so a corrupted table is
@@ -83,35 +83,43 @@ def launch_contract(configs, la: int, lb: int, rows: int = 64,
     if assign is None:
         assign, _ = round_robin_schedule(
             tuple(cfg.ct for cfg in sg.configs), rows)
-    block_rows, tile = fused_block_rows(assign)
-    batch = sum(len(ops) for ops in assign)
-    gather, source = fused_dispatch_maps(assign, block_rows, batch)
+    n_ops = tuple(len(ops) for ops in assign)
+    batch = sum(n_ops)
     table = np.asarray(sg.table() if table is None else table, np.int32)
     max_steps = table.shape[1] if table.ndim == 3 else sg.max_steps
-    path = launch_plan(n_inst, block_rows, la, lb, True)
+    path = launch_plan(n_inst, batch, la, lb, True)
     idle = tuple((i, j) for i, geo in enumerate(sg.rows)
                  for j in range(geo.ct_run, sg.max_steps))
-    ops = block_rows * sum(
-        introspect.ops_per_row("bank_fold", la, lb, sg.windows(i))
-        for i in range(n_inst))
+    ops = sum(n * introspect.ops_per_row("bank_fold", la, lb, sg.windows(i))
+              for i, n in enumerate(n_ops))
     kernel = ("bank_fold_bulk_launch" if path == "bulk"
               else "bank_fold_launch")
     return introspect.row_tile_contract(
         name=(f"bank_fold[la={la},lb={lb},n={n_inst},steps={sg.max_steps},"
-              f"rows={block_rows}]"),
+              f"batch={batch}]"),
         lib="bank_fold", kernel=kernel, path=path,
-        n_inst=n_inst, rows=block_rows, la=la, lb=lb,
-        launch_args=(n_inst, block_rows, la, lb, max_steps),
+        n_inst=1, rows=batch, la=la, lb=lb,
+        launch_args=(n_inst, batch, la, lb, max_steps),
         operands={
-            "a": introspect.Operand((n_inst, block_rows, la), "int32"),
-            "b": introspect.Operand((n_inst, block_rows, lb), "int32"),
+            "a": introspect.Operand((batch, la), "int32"),
+            "b": introspect.Operand((batch, lb), "int32"),
+            "owner": introspect.Operand((batch,), "int32"),
             "table": introspect.Operand(tuple(table.shape), "int32")},
-        out_shape=(n_inst, block_rows, la + lb), ops=ops,
+        out_shape=(batch, la + lb), ops=ops,
         table=table, idle_steps=idle, super_geometry=sg,
-        gather=gather, source=source,
-        n_ops=tuple(len(ops) for ops in assign), batch=batch,
-        tile_r=tile if tile_r is None else tile_r,
+        owner=fused_owner(assign, batch), assign=assign, n_ops=n_ops,
+        batch=batch, n_instances=n_inst,
+        tile_r=tile_r,
         roofline_skip=("table",))
+
+
+def _contiguous(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the launch takes it; a copy where it is not contiguous,
+    counted as ``bank_fold.operand_copies``."""
+    if x.is_contiguous():
+        return x
+    telemetry.count("bank_fold.operand_copies")
+    return x.contiguous()
 
 
 def make_fused_dispatch(assign, configs, la: int, lb: int, batch: int, *,
@@ -129,24 +137,19 @@ def make_fused_dispatch(assign, configs, la: int, lb: int, batch: int, *,
         raise ValueError(
             f"assignment covers {len(assign)} instances, plan has {n_inst}")
     if batch == 0:
-        # an empty round: no op 0 to pad with, and nothing to launch
+        # an empty round: nothing to launch
         def run(a, b):
             return torch.empty((0, la + lb), dtype=torch.int32,
                                device=a.device)
         return run
-    rows, _ = fused_block_rows(assign)
-    # padded rows re-fetch op 0 (computed, never read back)
-    gather, source = fused_dispatch_maps(assign, rows, batch)
-    gather = torch.from_numpy(gather).to(device)
-    source = torch.from_numpy(source).to(device)
+    owner = torch.from_numpy(fused_owner(assign, batch)).to(device)
     table = torch.from_numpy(sg.table()).to(device)
 
     def run(a, b):
-        ga, gb = a[gather], b[gather]
+        a, b = _contiguous(a), _contiguous(b)
         t0 = perf_counter()
-        prod = fused_bank_mul(ga, gb, table)
+        out = fused_bank_rows(a, b, owner, table)
         telemetry.span("bank_fold.launch", perf_counter() - t0)
-        out = prod.reshape(n_inst * rows, la + lb)[source]
         if signed:
             out = signed_correction(a, b, out)
         return out

@@ -24,7 +24,7 @@ exposes a ``launch_contract(...)`` hook returning a
                     masked idle (instance, step) pairs
   meta              what the analyzer needs beyond that: the block walk
                     (``walk``), the integer operations (``ops``), the
-                    fused dispatch's gather and source maps
+                    fused dispatch's owner table and assignment
 
 :meth:`LaunchContract.blocks` gives each block's work, the output rows
 it writes and the operand spans it reads, from the kernels' own index
@@ -137,16 +137,17 @@ class LaunchContract:
 
 def _row_regions(c: LaunchContract, inst: int, row0: int, n: int) -> tuple:
     """The reads and writes of ``n`` rows of instance ``inst`` from row
-    ``row0``: rows of A, B and the product, and the instance's windows
-    where the launch reads a table."""
+    ``row0``: rows of A, B and the product, and where the launch reads
+    an owner table (``bank_fold``: rows in batch order), the rows'
+    owners and every instance's windows."""
     rows = c.meta["rows"]
     r0 = inst * rows + row0
     span = (r0, r0 + n)
     reads = tuple((name, span, (0, c.operands[name].cols))
                   for name in ("a", "b"))
-    if "table" in c.operands:
-        steps = c.operands["table"].shape[1]
-        reads += (("table", (inst * steps, (inst + 1) * steps), (0, 2)),)
+    if "owner" in c.operands:
+        reads += (("owner", (0, 1), span),
+                  ("table", (0, c.operands["table"].rows), (0, 2)))
     return reads, (("out", span, (0, c.outputs["out"].cols)),)
 
 
@@ -288,8 +289,9 @@ def launch_shape(kernel: str, args: tuple) -> tuple:
                              f"({k}, {n})")
         (tm, tn), threads, dynamic, _ = TILES[path]
         return (-(-m // tm), -(-n // tn)), threads, dynamic
-    if lib == "bank_fold":
-        n_inst, rows, la, lb, _ = args
+    if lib == "bank_fold":         # a round's rows in batch order
+        n_bank, rows, la, lb, _ = args
+        n_inst = 1
     elif lib == "mcim_fold":
         (rows, la, lb), n_inst = args, 1
     else:
@@ -302,7 +304,13 @@ def launch_shape(kernel: str, args: tuple) -> tuple:
         if la != lb or la not in rt.H100_BULK_FIT[lib] or rows * la % 4:
             raise ValueError(f"{kernel}: the bulk path does not take "
                              f"{rows} rows of {la}x{lb} limbs")
-        return rt.bulk_launch(lib, n_inst, rows, la)
+        if lib != "bank_fold":
+            return rt.bulk_launch(lib, n_inst, rows, la)
+        if not 1 <= n_bank <= rt.BULK_INSTANCES:
+            raise ValueError(f"{kernel}: a bulk block keeps the limb "
+                             f"weights of 1 to {rt.BULK_INSTANCES} "
+                             f"instances, not {n_bank}")
+        return rt.bulk_launch(lib, n_inst, rows, la, n_bank * la * 4)
     if kernel == "mcim_fold_karatsuba_launch":
         maxl = max(la, lb) + max(la, lb) % 2
     elif lib == "karatsuba_ppm":

@@ -24,6 +24,9 @@ bank.report_builds    Bank.report             (counter) such misses
 bank.dispatch_build   Bank.execute            a batch size's first dispatch
 bank.dispatch_builds  Bank.execute            (counter) such builds
 bank_fold.launch      fused dispatch ``run``  the custom op's host side
+bank_fold.operand_    fused dispatch ``run``  (counter) operands copied
+copies                                        because they were not
+                                              contiguous
 worker.admit          Worker.run              a window's admissions + steals
 worker.round_host     Worker._execute_round   a round's packing + unpacking
 worker.rows           Worker._execute_round   (counter) a round's requests
@@ -73,7 +76,7 @@ WIDE_KERNELS = ("bank_fold", "mcim_fold_fb", "mcim_fold_ff",
 SPANS = ROOTS + ("bank.schedule", "bank.latency", "bank.dispatch_build",
                  "bank_fold.launch", "worker.admit", "worker.round_host")
 COUNTERS = (("bank.report_builds", "bank.dispatch_builds", "worker.rows",
-             "worker.bucket_rows")
+             "worker.bucket_rows", "bank_fold.operand_copies")
             + tuple(f"launch.{k}" for k in KERNELS)
             + tuple(f"launch.{k}.{p}" for k, paths in KERNEL_PATHS.items()
                     for p in paths)

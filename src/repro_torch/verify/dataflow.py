@@ -2,12 +2,12 @@
 
 Counterpart of the reference's ``verify/dataflow.py``.  The folded
 schedules are only correct if their *memory* behavior is: the fused
-kernel multiplies every instance's padded row block under one window
-table, and the dispatch gathers operand rows into those blocks and
-reads the products back -- exactly where an out-of-bounds window, a row
-two blocks write, or a product read back from a padding row would
-corrupt products without any test noticing (a wrong schedule can still
-be bit-exact on the batches a test happens to draw).  This module
+kernel multiplies a round's rows in batch order, each with the windows
+of the instance its owner table names -- exactly where an out-of-bounds
+window, a row two blocks write, or a row computed by another instance
+than the schedule assigned would corrupt products or the accounting
+without any test noticing (a wrong schedule can still be bit-exact on
+the batches a test happens to draw).  This module
 proves, per launch and *without executing it*, from the kernel
 package's declared :class:`~repro_torch.kernels.introspect.LaunchContract`:
 
@@ -23,10 +23,11 @@ package's declared :class:`~repro_torch.kernels.introspect.LaunchContract`:
                at 16-byte offsets; every window ``(lo, hi)`` respects
                the super-geometry (:func:`check_window_table`);
   hazards      every output row of a launch is written by exactly one
-               block; the fused dispatch's gather lies in the batch,
-               its read-back map takes every op from a distinct row
-               computed from that op's operands (never a padding row);
-               declared-idle steps add nothing to any limb's weight;
+               block; the fused dispatch's owner table names an
+               instance for every row, gives each instance exactly its
+               assigned count of ops, and is the scheduler's
+               assignment; declared-idle steps add nothing to any
+               limb's weight;
   shared mem   the launch's dynamic shared memory stays within the
                package's declared model, and both within a budget (the
                H100's 227 KiB opt-in a block; the role of the
@@ -189,9 +190,9 @@ def analyze_contract(contract, budget=None) -> LaunchReport:
                   f"the contract does not declare")
         return report()
 
-    # -- the fused dispatch's gather and read-back maps ------------------
-    if "gather" in c.meta:
-        _dispatch_maps(c, found)
+    # -- the fused dispatch's owner table --------------------------------
+    if "owner" in c.meta:
+        _owner_table(c, found)
 
     # -- static roofline -------------------------------------------------
     skip = c.meta.get("roofline_skip", ())
@@ -240,7 +241,7 @@ def _blocks(c, found) -> None:
                               f"{kind} {name}[{r0}:{r1}, {c0}:{c1}] outside "
                               f"its {ref.rows} x {ref.cols} extent")
                     continue
-                if bulk and name != "table":
+                if bulk and name not in ("owner", "table"):
                     row_bytes = ref.cols * ref.itemsize
                     if (r0 * row_bytes % 16 or (r1 - r0) * row_bytes % 16
                             or (c0, c1) != (0, ref.cols)):
@@ -271,46 +272,41 @@ def _blocks(c, found) -> None:
                       f"are written by no block")
 
 
-def _dispatch_maps(c, found) -> None:
-    """``make_fused_dispatch``'s maps: gather in [0, batch); source a
-    one-to-one map of the ops onto rows; each op's row a real row of its
-    instance, gathered from that op's operands."""
-    gather = np.asarray(c.meta["gather"])
-    source = np.asarray(c.meta["source"])
-    batch, rows = c.meta["batch"], c.meta["rows"]
+def _owner_table(c, found) -> None:
+    """``make_fused_dispatch``'s owner table: every row's owner an
+    instance of the launch (``owner-bounds``); each instance owning
+    exactly the count of ops its assignment gives it (``owner-count``);
+    each op owned by the instance the assignment put it on
+    (``owner-map``)."""
+    owner = np.asarray(c.meta["owner"])
     n_ops = np.asarray(c.meta["n_ops"])
+    n_inst, batch = c.meta["n_instances"], c.meta["batch"]
     where = f"{c.name} dispatch"
-    bad = np.argwhere((gather < 0) | (gather >= batch))
-    if bad.size:
-        i, r = (int(x) for x in bad[0])
-        found.add("gather-bounds", where,
-                  f"{len(bad)} block rows gather an op outside [0, {batch}),"
-                  f" first row {r} of instance {i} (op {int(gather[i, r])})")
-    if source.shape != (batch,) or ((source < 0)
-                                    | (source >= gather.size)).any():
-        found.add("source-map", where, f"read-back map of shape "
-                  f"{source.shape} leaves the {gather.size} block rows")
+    if owner.shape != (batch,):
+        found.add("owner-bounds", where, f"owner table of shape "
+                  f"{owner.shape} for a round of {batch} rows")
         return
-    if len(np.unique(source)) != batch:
-        found.add("source-map", where,
-                  "two ops read their products back from one row")
-    inst, row = np.divmod(source, rows)
-    ops = np.arange(batch)
-    padding = np.flatnonzero(row >= n_ops[inst])
-    if padding.size:
-        op = int(padding[0])
-        found.add("read-before-write", where,
-                  f"{padding.size} ops read a padding row back, first op "
-                  f"{op} from row {int(row[op])} of instance "
-                  f"{int(inst[op])}, which holds {int(n_ops[inst[op]])} ops")
-    foreign = np.flatnonzero(gather[inst, row] != ops)
-    if foreign.size:
-        op = int(foreign[0])
-        found.add("read-before-write", where,
-                  f"{foreign.size} ops read back a product computed for "
-                  f"another op, first op {op} from row {int(row[op])} of "
-                  f"instance {int(inst[op])} (gathered for op "
-                  f"{int(gather[inst[op], row[op]])})")
+    bad = np.flatnonzero((owner < 0) | (owner >= n_inst))
+    if bad.size:
+        op = int(bad[0])
+        found.add("owner-bounds", where,
+                  f"{bad.size} rows name an owner outside [0, {n_inst}), "
+                  f"first op {op} (owner {int(owner[op])})")
+    held = np.bincount(owner[(owner >= 0) & (owner < n_inst)],
+                       minlength=n_inst)
+    for i in np.flatnonzero(held != n_ops):
+        found.add("owner-count", f"{where} instance {int(i)}",
+                  f"instance {int(i)} owns {int(held[i])} ops, its "
+                  f"assignment {int(n_ops[i])}")
+    for i, ops in enumerate(c.meta["assign"]):
+        ops = np.asarray(ops, np.int64)
+        moved = ops[owner[ops] != i]
+        if moved.size:
+            op = int(moved[0])
+            found.add("owner-map", f"{where} instance {i}",
+                      f"{moved.size} ops assigned to instance {i} are "
+                      f"computed by another, first op {op} by instance "
+                      f"{int(owner[op])}")
 
 
 # ----------------------------------------------------- window-table rules

@@ -107,50 +107,65 @@ def test_tiles_cover_every_row_once(n_inst, rows, la, grid):
 
 
 def _blocks(n_inst, rows, la, lb, offset=0):
-    """(N_INST, R, LA) x (N_INST, R, LB) CPU blocks starting ``offset``
-    words into their storage, and an all-windows table."""
+    """A round of n_inst x R rows of (LA, LB) CPU limbs in batch order,
+    starting ``offset`` words into their storage, its owner table (rows
+    ``i * R ...`` of instance i; the first R rows are ``a0``, ``b0``) and
+    an all-windows table."""
     a = torch.zeros(n_inst * rows * la + offset, dtype=torch.int32)
     b = torch.zeros(n_inst * rows * lb + offset, dtype=torch.int32)
-    a = a[offset:].view(n_inst, rows, la)
-    b = b[offset:].view(n_inst, rows, lb)
+    a = a[offset:].view(n_inst * rows, la)
+    b = b[offset:].view(n_inst * rows, lb)
+    owner = torch.arange(n_inst, dtype=torch.int32).repeat_interleave(rows)
     table = torch.tensor([[[0, lb]]] * n_inst, dtype=torch.int32)
-    return a, b, table
+    return a, b, owner, table, a[:rows], b[:rows]
 
 
 @pytest.mark.parametrize("n_inst,rows,la,lb,offset", [
     (1, 7, 2, 2, 0), (2, 128, 3, 5, 0), (2, 128, 2, 2, 1),
     (1, 3 * 512 + 1, 2, 2, 0), (1, 128, 2, 2, 1), (1, 128, 3, 5, 0),
-    (1, 7, 8, 8, 1), (1, 128, 6, 6, 0), (1, 128, 1, 1, 0)])
+    (1, 7, 8, 8, 1), (1, 128, 6, 6, 0), (1, 128, 1, 1, 0),
+    (129, 128, 2, 2, 0)])
 def test_bulk_path_refuses_what_bulk_copies_cannot_take(n_inst, rows, la,
                                                         lb, offset):
-    a, b, table = _blocks(n_inst, rows, la, lb, offset)
+    a, b, owner, table, a0, b0 = _blocks(n_inst, rows, la, lb, offset)
     with pytest.raises(ValueError, match="bulk"):
-        TB.fused_bank_mul_kernel(a, b, table, path="bulk")
+        TB.fused_bank_mul_kernel(a, b, owner, table, path="bulk")
     if n_inst == 1:
         for schedule in ("fb", "ff"):
             with pytest.raises(ValueError, match="bulk"):
-                TF.mcim_fold_kernel(a[0], b[0], schedule=schedule,
+                TF.mcim_fold_kernel(a0, b0, schedule=schedule,
                                     path="bulk")
         if la == lb and la % 2 == 0:
             with pytest.raises(ValueError, match="bulk"):
-                TK.karatsuba_ppm_kernel(a[0], b[0], path="bulk")
+                TK.karatsuba_ppm_kernel(a0, b0, path="bulk")
+
+
+def test_bulk_path_takes_at_most_its_instances():
+    """A round of more instances than a bulk block keeps weights for
+    takes the per-thread path, with the reason where bulk is asked."""
+    limit = RT.BULK_INSTANCES
+    assert TB.launch_plan(limit, 1024, 8, 8, True) == "bulk"
+    assert TB.launch_plan(limit + 1, 1024, 8, 8, True) == "per_thread"
+    a, b, owner, table, _, _ = _blocks(limit + 1, 4, 8, 8)
+    with pytest.raises(ValueError, match=f"at most {limit}"):
+        TB.fused_bank_mul_kernel(a, b, owner, table, path="bulk")
 
 
 def test_kernel_calls_refuse_unknown_paths_and_cpu_tensors():
-    a, b, table = _blocks(2, 128, 2, 2)
+    a, b, owner, table, a0, b0 = _blocks(2, 128, 2, 2)
     with pytest.raises(ValueError, match="path"):
-        TB.fused_bank_mul_kernel(a, b, table, path="tma")
+        TB.fused_bank_mul_kernel(a, b, owner, table, path="tma")
     with pytest.raises(ValueError, match="path"):
-        TF.mcim_fold_kernel(a[0], b[0], schedule="ff", path="tma")
+        TF.mcim_fold_kernel(a0, b0, schedule="ff", path="tma")
     for path in TB.PATHS:
         with pytest.raises(ValueError, match="not CUDA"):
-            TB.fused_bank_mul_kernel(a, b, table, path=path)
+            TB.fused_bank_mul_kernel(a, b, owner, table, path=path)
         with pytest.raises(ValueError, match="not CUDA"):
-            TF.mcim_fold_kernel(a[0], b[0], schedule="ff", path=path)
+            TF.mcim_fold_kernel(a0, b0, schedule="ff", path=path)
     with pytest.raises(ValueError, match="ct"):    # FF folds over CT >= 2
-        TF.mcim_fold_mul(a[0], b[0], ct=1, schedule="ff")
+        TF.mcim_fold_mul(a0, b0, ct=1, schedule="ff")
     with pytest.raises(ValueError, match="schedule"):
-        TF.mcim_fold_kernel(a[0], b[0], schedule="karatsuba", path="bulk")
+        TF.mcim_fold_kernel(a0, b0, schedule="karatsuba", path="bulk")
 
 
 @pytest.mark.parametrize("kernel", ("fb", "ff", "karatsuba_ppm"))
@@ -159,19 +174,19 @@ def test_new_kernel_calls_refuse_unknown_paths_and_cpu_tensors(kernel):
     path, CPU tensors on either path (no plain version behind them), and
     a view the bulk path cannot take."""
     la = 2 if kernel == "karatsuba_ppm" else 4   # widths with a bulk path
-    a, b, _ = _blocks(1, 128, la, la)
+    a, b = _blocks(1, 128, la, la)[:2]
 
     def run(x, y, path):
         if kernel == "karatsuba_ppm":
             return TK.karatsuba_ppm_kernel(x, y, path=path)
         return TF.mcim_fold_kernel(x, y, schedule=kernel, path=path)
     with pytest.raises(ValueError, match="path"):
-        run(a[0], b[0], path="tma")
+        run(a, b, path="tma")
     for path in TF.PATHS:
         with pytest.raises(ValueError, match="not CUDA"):
-            run(a[0], b[0], path=path)
+            run(a, b, path=path)
     with pytest.raises(ValueError, match="bulk"):    # a view 4 B off
-        run(a.reshape(-1)[1:1 + 127 * la].view(127, la), b[0, :127],
+        run(a.reshape(-1)[1:1 + 127 * la].view(127, la), b[:127],
             path="bulk")
 
 

@@ -234,33 +234,46 @@ def test_row_written_twice_and_unwritten_rejected(monkeypatch):
     assert "row 256" in rep.violations[0].where
 
 
-def test_dispatch_maps_reading_padding_or_foreign_rows_rejected():
+def _with_owner(c, owner):
+    return TDF.analyze_contract(dataclasses.replace(
+        c, meta={**c.meta, "owner": owner}))
+
+
+def test_owner_table_faults_rejected():
+    """Planted faults in the fused dispatch's owner table, each refused
+    by its named rule: an owner out of range, an instance owning one op
+    too many, two ops of different instances swapping owners."""
     c = _fused()
     assert TDF.analyze_contract(c).ok
-    n_ops, rows = c.meta["n_ops"], c.meta["rows"]
-    assert min(n_ops) < rows                  # instance 3 has padding
-    source = c.meta["source"].copy()
-    source[0] = 3 * rows + n_ops[3]           # a padding row
-    rep = TDF.analyze_contract(dataclasses.replace(
-        c, meta={**c.meta, "source": source}))
-    assert _rules(rep.violations) == {"read-before-write"}
-    assert "padding row" in rep.violations[0].detail
-    source = c.meta["source"].copy()
-    source[[0, 1]] = source[[1, 0]]           # two ops swap their rows
-    rep = TDF.analyze_contract(dataclasses.replace(
-        c, meta={**c.meta, "source": source}))
-    assert _rules(rep.violations) == {"read-before-write"}
-    assert "another op" in rep.violations[0].detail
-    source = c.meta["source"].copy()
-    source[1] = source[0]
-    rep = TDF.analyze_contract(dataclasses.replace(
-        c, meta={**c.meta, "source": source}))
-    assert "source-map" in _rules(rep.violations)
-    gather = c.meta["gather"].copy()
-    gather[2, 0] = c.meta["batch"]
-    rep = TDF.analyze_contract(dataclasses.replace(
-        c, meta={**c.meta, "gather": gather}))
-    assert "gather-bounds" in _rules(rep.violations)
+    owner, assign = c.meta["owner"], c.meta["assign"]
+    assert owner.dtype == np.int32 and owner.shape == (c.meta["batch"],)
+    assert np.bincount(owner).tolist() == list(c.meta["n_ops"])
+    bad = owner.copy()
+    bad[5] = 4                                   # 4 instances: 0-3
+    rep = _with_owner(c, bad)
+    assert "owner-bounds" in _rules(rep.violations)
+    assert "first op 5 (owner 4)" in next(
+        v.detail for v in rep.violations if v.rule == "owner-bounds")
+    bad = owner.copy()
+    bad[-1] = -1
+    assert "owner-bounds" in _rules(_with_owner(c, bad).violations)
+    star, fb = assign[0][0], assign[3][0]        # ops of instances 0, 3
+    bad = owner.copy()
+    bad[fb] = 0                                  # instance 0: one too many
+    rep = _with_owner(c, bad)
+    assert _rules(rep.violations) == {"owner-count", "owner-map"}
+    counts = [v for v in rep.violations if v.rule == "owner-count"]
+    assert [v.where.split()[-1] for v in counts] == ["0", "3"]
+    n0 = c.meta["n_ops"][0]
+    assert f"owns {n0 + 1} ops, its assignment {n0}" in counts[0].detail
+    bad = owner.copy()
+    bad[[star, fb]] = bad[[fb, star]]            # two ops swap owners
+    rep = _with_owner(c, bad)
+    assert _rules(rep.violations) == {"owner-map"}
+    assert len(rep.violations) == 2
+    assert f"first op {star} by instance 3" in rep.violations[0].detail
+    rep = _with_owner(c, owner[:-1])
+    assert _rules(rep.violations) == {"owner-bounds"}
 
 
 def test_unknown_launcher_and_wide_rows_are_findings():
@@ -342,12 +355,13 @@ def test_reports_are_cached_per_geometry():
 # ------------------------------------------------------ roofline, mirrors
 
 @pytest.mark.parametrize("name,want_bytes,want_ms", [
-    ("tp3p5_w32", 38_404_096, 0.0115),        # PERF.md section 6
-    ("tp5over6_w128", 161_087_488, 0.0481)])
+    ("tp3p5_w32", 37_748_736, 0.0113),        # PERF.md section 6
+    ("tp5over6_w128", 138_412_032, 0.0413)])
 def test_plan_static_stats_give_the_fused_rounds_bytes(name, want_bytes,
                                                        want_ms):
     """``chip_smoke.py`` phase 2's fused rounds (B = 1,048,576): operands
-    read once, products written once, the window table left out."""
+    and the owner table read once, products written once, the window
+    table left out."""
     d = TD.generate(name, device="cpu")
     stats = TDF.plan_static_stats(d.spec.bits_a, d.spec.bits_b,
                                   d.plan.configs, batch=1 << 20)
@@ -359,26 +373,40 @@ def test_plan_static_stats_give_the_fused_rounds_bytes(name, want_bytes,
     assert gate["ok"] and gate["hbm_bytes_per_launch"] < want_bytes
 
 
-def test_round_contract_blocks_are_the_dispatch_blocks():
-    """The contract's blocks are ``fused_block_rows`` of the design's
-    round, its maps ``make_fused_dispatch``'s (one construction)."""
+def test_round_contract_owner_is_the_dispatch_owner():
+    """The contract declares the launch the dispatch makes: the round's
+    rows in batch order, ``fused_owner`` of the design's assignment (one
+    construction), ops over the instances' real rows."""
+    from repro_torch.core.bank.schedule import get_scheduler
     d = TD.generate("tp3p5_w32", device="cpu")
-    c = TDF.round_contract(32, 32, d.plan.configs, 1 << 20)
-    n_ops = [i.n_ops for i in d.report(1 << 20).instances]
-    rows, _ = bank_fold.fused_block_rows([range(n) for n in n_ops])
-    assert c.meta["n_ops"] == tuple(n_ops) and rows == c.meta["rows"]
-    assert c.operands["a"].shape == (4, 300_032, 2)
+    batch = 1 << 20
+    c = TDF.round_contract(32, 32, d.plan.configs, batch)
+    n_ops = [i.n_ops for i in d.report(batch).instances]
+    assert c.meta["n_ops"] == tuple(n_ops) and c.meta["rows"] == batch
+    assign, _ = get_scheduler(d.spec.scheduler).schedule(
+        tuple(cfg.ct for cfg in d.bank.instances), batch)
+    np.testing.assert_array_equal(c.meta["owner"],
+                                  bank_fold.fused_owner(assign, batch))
+    assert c.operands["a"].shape == (batch, 2)
+    assert c.operands["owner"].shape == (batch,)
+    assert c.outputs["out"].shape == (batch, 4)
+    assert c.launch_args == (4, batch, 2, 2, 2) and c.path == "bulk"
+    per_row = [introspect.ops_per_row("bank_fold", 2, 2, windows)
+               for windows in (((0, 2), (0, 0)), ((0, 1), (1, 2)))]
+    assert c.meta["ops"] == (sum(n_ops[:3]) * per_row[0]
+                             + n_ops[3] * per_row[1])
 
 
 @pytest.mark.parametrize("kernel,args,want", [
     # the H100's own *_launch_shape figures (132 SMs; 8, 4, 2, 2 blocks
     # an SM at 2, 4, 8, 16 limbs)
-    ("bank_fold_bulk_launch", (1, 1 << 22, 2, 2, 2), ((1056, 1), 256, 16400)),
-    ("bank_fold_bulk_launch", (1, 1 << 22, 4, 4, 2), ((528, 1), 256, 49184)),
+    # (bank_fold's bulk blocks keep an instance's L weights after them)
+    ("bank_fold_bulk_launch", (1, 1 << 22, 2, 2, 2), ((1056, 1), 256, 16408)),
+    ("bank_fold_bulk_launch", (3, 1 << 22, 4, 4, 2), ((528, 1), 256, 49232)),
     ("mcim_fold_bulk_launch", (1 << 22, 8, 8), ((264, 1), 128, 32784)),
     ("mcim_fold_bulk_launch", (1 << 22, 16, 16), ((264, 1), 128, 65552)),
     ("karatsuba_ppm_bulk_launch", (1 << 22, 2), ((1056, 1), 256, 16400)),
-    ("bank_fold_launch", (3, 1000, 3, 3, 2), ((8, 3), 128, 3584)),
+    ("bank_fold_launch", (3, 1000, 3, 3, 2), ((8, 1), 128, 3584)),
     ("mcim_fold_launch", (1000, 2, 2), ((8, 1), 128, 0)),
     ("mcim_fold_karatsuba_launch", (1000, 6, 6), ((8, 1), 128, 6656)),
     ("karatsuba_ppm_launch", (1000, 16), ((8, 1), 128, 16896)),
@@ -396,6 +424,7 @@ def test_launch_mirror_matches_the_cards_launch_shape(kernel, args, want):
 
 def test_launch_mirror_refuses_what_the_launchers_refuse():
     for kernel, args in (("bank_fold_bulk_launch", (1, 7, 2, 2, 1)),
+                         ("bank_fold_bulk_launch", (129, 1024, 2, 2, 1)),
                          ("mcim_fold_bulk_launch", (128, 3, 5)),
                          ("karatsuba_ppm_bulk_launch", (128, 4)),
                          ("karatsuba_ppm_launch", (128, 3)),
@@ -410,44 +439,80 @@ def test_per_thread_walk_is_the_tile_walk_one_tile_a_block():
     c = bank_fold.launch_contract((TCfg(arch="fb", ct=2),) * 3, 3, 3,
                                   rows=600)
     assert c.path == "per_thread"
-    per_inst, n_inst = c.grid
-    walk = _row_tiles.tile_walk(n_inst, c.meta["rows"], c.block,
-                                per_inst * n_inst)
+    n_tiles, n_y = c.grid
+    assert n_y == 1                   # the round's rows in batch order
+    walk = _row_tiles.tile_walk(1, c.meta["rows"], c.block, n_tiles)
     blocks = {w.block: w for w in c.blocks()}
     for t, tiles in enumerate(walk):
         (inst, row0, n), = tiles
-        work = blocks[(t % per_inst, t // per_inst)]
-        r0 = inst * c.meta["rows"] + row0
-        assert work.writes == (("out", (r0, r0 + n), (0, 6)),)
+        work = blocks[(t, 0)]
+        assert inst == 0
+        assert work.writes == (("out", (row0, row0 + n), (0, 6)),)
+        assert ("owner", (0, 1), (row0, row0 + n)) in work.reads
 
 
-@pytest.mark.parametrize("la", [1, 2, 3, 4, 8, 16])
-def test_fused_dispatch_maps_are_the_dispatchs(la):
-    """``make_fused_dispatch`` gathers by ``fused_dispatch_maps`` and
-    reads each op back from the row its map names (CPU, plain path)."""
+@pytest.mark.parametrize("scheduler", ["round_robin", "greedy"])
+@pytest.mark.parametrize("la", [1, 2, 3, 4, 8, 16, 24])
+def test_fused_dispatch_owner_is_the_assignment(la, scheduler):
+    """``make_fused_dispatch`` launches on the caller's rows with
+    ``fused_owner``'s table: every op owned by the instance its
+    assignment names; products equal the integer oracle on ragged and
+    prime batches (CPU, plain path), and nothing is copied."""
     import torch
+    from repro_torch import telemetry
     from repro_torch.core import limbs as TL
-    from repro_torch.core.bank.schedule import round_robin_schedule
+    from repro_torch.core.bank.schedule import get_scheduler
     cfgs = (TCfg(arch="star", ct=1), TCfg(arch="fb", ct=2),
             TCfg(arch="ff", ct=3))
-    batch = 37
-    assign, _ = round_robin_schedule(tuple(c.ct for c in cfgs), batch)
-    rows, _ = bank_fold.fused_block_rows(assign)
-    gather, source = bank_fold.fused_dispatch_maps(assign, rows, batch)
-    for i, ops in enumerate(assign):
-        assert list(gather[i, :len(ops)]) == list(ops)
-        assert not gather[i, len(ops):].any()
-        assert [source[op] for op in ops] == [i * rows + r
-                                              for r in range(len(ops))]
     rng = np.random.default_rng(la)
-    a = TL.from_numpy(TL.random_limbs(rng, (batch,), 16 * la), "cpu")
-    b = TL.from_numpy(TL.random_limbs(rng, (batch,), 16 * la), "cpu")
+    for batch in (37, 100, 1):
+        assign, _ = get_scheduler(scheduler).schedule(
+            tuple(c.ct for c in cfgs), batch)
+        owner = bank_fold.fused_owner(assign, batch)
+        assert owner.dtype == np.int32 and owner.shape == (batch,)
+        for i, ops in enumerate(assign):
+            assert (owner[list(ops)] == i).all()
+        assert np.bincount(owner, minlength=3).tolist() == [
+            len(ops) for ops in assign]
+        a = TL.from_numpy(TL.random_limbs(rng, (batch,), 16 * la), "cpu")
+        b = TL.from_numpy(TL.random_limbs(rng, (batch,), 16 * la), "cpu")
+        run = bank_fold.make_fused_dispatch(assign, cfgs, la, la, batch,
+                                            device="cpu")
+        before = telemetry.totals()["counters"]["bank_fold.operand_copies"]
+        want = [int(x) * int(y) for x, y in zip(TL.batch_from_limbs(a),
+                                                TL.batch_from_limbs(b))]
+        assert TL.batch_from_limbs(run(a, b)) == want
+        assert torch.equal(run(a, b), run(a, b))
+        assert telemetry.totals()["counters"][
+            "bank_fold.operand_copies"] == before
+
+
+def test_fused_dispatch_copies_views_that_are_not_contiguous():
+    """A transposed operand is copied once a call and counted as
+    ``bank_fold.operand_copies``; a contiguous one is taken as it is."""
+    import torch
+    from repro_torch import telemetry
+    from repro_torch.core import limbs as TL
+    from repro_torch.core.bank.schedule import round_robin_schedule
+    cfgs = (TCfg(arch="star", ct=1), TCfg(arch="fb", ct=2))
+    batch, la = 29, 4
+    assign, _ = round_robin_schedule((1, 2), batch)
     run = bank_fold.make_fused_dispatch(assign, cfgs, la, la, batch,
                                         device="cpu")
-    want = [int(x) * int(y) for x, y in zip(TL.batch_from_limbs(a),
-                                            TL.batch_from_limbs(b))]
-    assert TL.batch_from_limbs(run(a, b)) == want
-    assert torch.equal(run(a, b), run(a, b))
+    rng = np.random.default_rng(3)
+    a = TL.from_numpy(TL.random_limbs(rng, (batch,), 16 * la), "cpu")
+    b = TL.from_numpy(TL.random_limbs(rng, (batch,), 16 * la), "cpu")
+    a_t = a.t().contiguous().t()              # the same values, transposed
+    assert not a_t.is_contiguous()
+
+    def copies():
+        return telemetry.totals()["counters"]["bank_fold.operand_copies"]
+
+    before = copies()
+    want = run(a, b)
+    assert copies() == before
+    assert torch.equal(run(a_t, b), want)
+    assert copies() == before + 1
 
 
 # ------------------------------------------------------- the plan gate

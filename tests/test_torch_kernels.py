@@ -227,7 +227,8 @@ def test_bank_kernel_matches_plain_on_card(cuda_device, bits, tp):
     got = TB.fused_bank_mul(a, b, table)
     torch.cuda.synchronize()
     assert _build.launch_counts()["bank_fold"] == before + 1
-    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+    assert torch.equal(got.cpu(), TB.fused_bank_mul(a.cpu(), b.cpu(),
+                                                    table.cpu()))
 
 
 @pytest.mark.cuda
@@ -384,10 +385,12 @@ def _on_card(x, device, offset=0):
 
 
 def _bank_operands(n_inst, rows, la, lb, device, offset=0):
-    """Random (N_INST, R, LA) x (N_INST, R, LB) blocks and a table whose
-    instance i folds B over i + 1 windows, with idle (0, 0) steps (first
-    for odd instances, last for even ones)."""
-    a, b = _pair(n_inst * rows + la * lb, (n_inst, rows), 16 * la, 16 * lb)
+    """A round of n_inst x R random (LA, LB) rows in batch order, R a
+    instance, their owners shuffled (a warp's rows mix instances), and a
+    table whose instance i folds B over i + 1 windows, with idle (0, 0)
+    steps (first for odd instances, last for even ones)."""
+    a, b = _pair(n_inst * rows + la * lb, (n_inst * rows,), 16 * la,
+                 16 * lb)
     max_steps = n_inst + 1
     table = np.zeros((n_inst, max_steps, 2), np.int32)
     for i in range(n_inst):
@@ -395,7 +398,10 @@ def _bank_operands(n_inst, rows, la, lb, device, offset=0):
         wins = [(lo, min(lo + chunk, lb)) for lo in range(0, lb, chunk)]
         idle = [(0, 0)] * (max_steps - len(wins))
         table[i] = idle + wins if i % 2 else wins + idle
+    owner = np.random.default_rng(rows).permutation(
+        np.repeat(np.arange(n_inst, dtype=np.int32), rows))
     return (_on_card(a, device, offset), _on_card(b, device, offset),
+            torch.from_numpy(owner).to(device),
             torch.from_numpy(table).to(device))
 
 
@@ -406,16 +412,16 @@ def _bank_operands(n_inst, rows, la, lb, device, offset=0):
 def test_bank_kernel_paths_match_plain_on_card(cuda_device, la, lb, rows,
                                                path):
     n_inst = 1 + PATH_ROWS.index(rows) % 4
-    a, b, table = _bank_operands(n_inst, rows, la, lb, cuda_device)
+    a, b, owner, table = _bank_operands(n_inst, rows, la, lb, cuda_device)
     before = _build.path_counts()["bank_fold"][path]
-    if path == "bulk" and TB.launch_plan(n_inst, rows, la, lb,
+    if path == "bulk" and TB.launch_plan(n_inst, n_inst * rows, la, lb,
                                          True) != "bulk":
         with pytest.raises(ValueError, match="bulk"):
-            TB.fused_bank_mul_kernel(a, b, table, path=path)
+            TB.fused_bank_mul_kernel(a, b, owner, table, path=path)
         return
-    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, table,
-                   path=path)
-    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, owner,
+                   table, path=path)
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, owner, table))
     assert _build.path_counts()["bank_fold"][path] == before + 1
 
 
@@ -427,19 +433,21 @@ def test_bank_kernel_paths_take_many_windows(cuda_device, la, lb, path):
     time, so this crosses a load (and idle steps sit between windows)."""
     rng = np.random.default_rng(la * 100 + lb)
     n_inst, rows, steps = 3, 1000, 40
-    a, b = _pair(7, (n_inst, rows), 16 * la, 16 * lb)
+    a, b = _pair(7, (n_inst * rows,), 16 * la, 16 * lb)
     lo = rng.integers(0, lb + 1, size=(n_inst, steps))
     hi = lo + rng.integers(0, lb + 1, size=(n_inst, steps))
     table = np.stack([lo, np.minimum(hi, lb)], axis=-1).astype(np.int32)
     table[:, ::3] = 0                                  # idle steps
+    owner = rng.integers(0, n_inst, n_inst * rows).astype(np.int32)
     a, b = TL.from_numpy(a, cuda_device), TL.from_numpy(b, cuda_device)
+    owner = torch.from_numpy(owner).to(cuda_device)
     table = torch.from_numpy(table).to(cuda_device)
-    if path == "bulk" and TB.launch_plan(n_inst, rows, la, lb,
+    if path == "bulk" and TB.launch_plan(n_inst, n_inst * rows, la, lb,
                                          True) != "bulk":
         return
-    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, table,
-                   path=path)
-    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, owner,
+                   table, path=path)
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, owner, table))
 
 
 @pytest.mark.cuda
@@ -468,10 +476,11 @@ def test_ff_kernel_paths_match_plain_on_card(cuda_device, la, lb, rows,
 def test_bank_and_ff_kernels_on_misaligned_views(cuda_device, la):
     """Views 4 bytes off a 16-byte boundary take the per-thread path
     through the public entry points, as ``big_mul(a[3:], b[3:])`` does."""
-    a, b, table = _bank_operands(3, 1000, la, la, cuda_device, offset=1)
-    assert TB.launch_plan(3, 1000, la, la, False) == "per_thread"
-    got = _counted("bank_fold", TB.fused_bank_mul, a, b, table)
-    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+    a, b, owner, table = _bank_operands(3, 1000, la, la, cuda_device,
+                                        offset=1)
+    assert TB.launch_plan(3, 3000, la, la, False) == "per_thread"
+    got = _counted("bank_fold", TB.fused_bank_rows, a, b, owner, table)
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, owner, table))
     fa, fb = _pair(la, (1003,), 16 * la)
     fa, fb = TL.from_numpy(fa, cuda_device), TL.from_numpy(fb, cuda_device)
     got = _counted("mcim_fold_ff", TF.big_mul, fa[3:], fb[3:], ct=2,
@@ -483,21 +492,22 @@ def test_bank_and_ff_kernels_on_misaligned_views(cuda_device, la):
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", (0, 1))        # bulk, per-thread
 def test_bank_and_ff_kernels_replay_in_a_cuda_graph(cuda_device, offset):
-    a, b, table = _bank_operands(4, 300_032, 2, 2, cuda_device, offset)
-    fa, fb = (x.reshape(-1, 2) for x in (a, b))
-    run = lambda: (TB.fused_bank_mul(a, b, table),  # noqa: E731
+    a, b, owner, table = _bank_operands(4, 300_032, 2, 2, cuda_device,
+                                        offset)
+    fa, fb = a, b
+    run = lambda: (TB.fused_bank_rows(a, b, owner, table),  # noqa: E731
                    TF.mcim_fold_mul(fa, fb, ct=2, schedule="ff"))
     run()                                # first launches outside capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         bank, ff = run()
-    x, y, _ = _bank_operands(4, 300_032, 2, 2, "cpu")
+    x, y = _bank_operands(4, 300_032, 2, 2, "cpu")[:2]
     a.copy_(y.to(cuda_device))           # new operands, same storage
     b.copy_(x.to(cuda_device))
     graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(bank, TB.fused_bank_mul_ref(a, b, table))
+    assert torch.equal(bank, TB.fused_bank_mul_ref(a, b, owner, table))
     assert torch.equal(ff, TF.mcim_fold_mul_ref(fa, fb, ct=2,
                                                 schedule="ff"))
 

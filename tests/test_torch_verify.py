@@ -406,9 +406,10 @@ def test_custom_ops_fake_versions_give_the_kernels_outputs():
         def e(*shape, dtype=i32):
             return torch.empty(shape, dtype=dtype)
         cases = [
-            (bank_fold.fused_bank_mul_kernel(e(3, 40, 2), e(3, 40, 5),
-                                             e(3, 2, 2), path="auto"),
-             (3, 40, 7), i32),
+            (bank_fold.fused_bank_mul_kernel(e(120, 2), e(120, 5),
+                                             e(120), e(3, 2, 2),
+                                             path="auto"),
+             (120, 7), i32),
             (mcim_fold.mcim_fold_kernel(e(33, 4), e(33, 4), schedule="ff",
                                         path="bulk"), (33, 8), i32),
             (mcim_fold.mcim_fold_karatsuba_kernel(e(9, 3), e(9, 5)),

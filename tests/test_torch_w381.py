@@ -141,7 +141,8 @@ def test_round_of_the_bulk_cell_proves_clean(batch):
     rep = TDF.analyze_contract(TDF.round_contract(381, 381, CONFIGS,
                                                   batch))
     assert rep.ok, rep.violations
-    assert rep.path == "bulk" and rep.smem["dynamic_bytes"] == 98_320
+    # the walk's 98,320 B and the two instances' 24 limb weights
+    assert rep.path == "bulk" and rep.smem["dynamic_bytes"] == 98_512
 
 
 def _contracts(width):
@@ -214,14 +215,17 @@ def _worst(a, b):
 
 
 def _bank_blocks(seed, n_inst, rows, la, lb, device, offset=0):
-    """(N_INST, R, LA) x (N_INST, R, LB) blocks on ``device``, ``offset``
-    words into their storage (1: 4-byte aligned, not 16)."""
+    """A round of n_inst x R (LA, LB) rows in batch order on ``device``,
+    ``offset`` words into their storage (1: 4-byte aligned, not 16), and
+    their owners, R an instance, shuffled."""
     out = []
     for x in _worst(*_operands(seed, n_inst * rows, 16 * la, 16 * lb)):
         flat = torch.zeros(x.size + offset, dtype=torch.int32, device=device)
         flat[offset:] = L.from_numpy(x.reshape(-1), device)
-        out.append(flat[offset:].view(n_inst, rows, -1))
-    return out
+        out.append(flat[offset:].view(n_inst * rows, -1))
+    owner = np.random.default_rng(seed).permutation(
+        np.repeat(np.arange(n_inst, dtype=np.int32), rows))
+    return (*out, torch.from_numpy(owner).to(device))
 
 
 @pytest.mark.cuda
@@ -233,14 +237,15 @@ def test_bank_fold_at_24_limbs_on_card(cuda_device, rows, path, offset):
     cfgs = (MCIMConfig(arch="fb", ct=2), MCIMConfig(arch="karatsuba", ct=3))
     table = torch.from_numpy(TB.super_geometry(cfgs, LIMBS, LIMBS).table()
                              ).to(cuda_device)
-    a, b = _bank_blocks(rows, 2, rows, LIMBS, LIMBS, cuda_device, offset)
-    assert TB.launch_plan(2, rows, LIMBS, LIMBS, offset == 0) == (
+    a, b, owner = _bank_blocks(rows, 2, rows, LIMBS, LIMBS, cuda_device,
+                               offset)
+    assert TB.launch_plan(2, 2 * rows, LIMBS, LIMBS, offset == 0) == (
         "bulk" if offset == 0 else "per_thread")
-    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, table,
-                   path=path)
-    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
-    assert _ints(got[0, :64]) == [x * y for x, y in zip(
-        _ints(a[0, :64]), _ints(b[0, :64]))]
+    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, owner,
+                   table, path=path)
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, owner, table))
+    assert _ints(got[:64]) == [x * y for x, y in zip(
+        _ints(a[:64]), _ints(b[:64]))]
 
 
 @pytest.mark.cuda
@@ -253,15 +258,15 @@ def test_bank_fold_weights_at_24_limbs_on_card(cuda_device, la, lb, path):
         return
     rng = np.random.default_rng(la * 100 + lb)
     n_inst, rows, steps = 3, 1000, 40
-    a, b = _bank_blocks(lb, n_inst, rows, la, lb, cuda_device)
+    a, b, owner = _bank_blocks(lb, n_inst, rows, la, lb, cuda_device)
     lo = rng.integers(0, lb + 1, size=(n_inst, steps))
     hi = lo + rng.integers(0, lb + 1, size=(n_inst, steps))
     table = np.stack([lo, np.minimum(hi, lb)], axis=-1).astype(np.int32)
     table[:, ::3] = 0
     table = torch.from_numpy(table).to(cuda_device)
-    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, table,
-                   path=path)
-    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, table))
+    got = _counted("bank_fold", TB.fused_bank_mul_kernel, a, b, owner,
+                   table, path=path)
+    assert torch.equal(got, TB.fused_bank_mul_ref(a, b, owner, table))
 
 
 @pytest.mark.cuda
