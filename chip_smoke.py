@@ -255,7 +255,6 @@ The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
-import ctypes
 import dataclasses
 import datetime
 import gc
@@ -278,11 +277,12 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-# H100 SXM peaks and the limb kernels' operation counts: the port's own
-# (repro_torch/kernels/introspect.py), which the plan-time gate's
+# H100 SXM peaks (repro_torch/h100.py) and the limb kernels' operation
+# counts (repro_torch/kernels/introspect.py), which the plan-time gate's
 # roofline (verify/dataflow.py) uses too
-from repro_torch.kernels.introspect import (  # noqa: E402
-    HBM_BYTES_PER_S, ops_per_row)
+from repro_torch.h100 import (  # noqa: E402
+    BF16_FLOPS_PER_S, HBM_BYTES_PER_S)
+from repro_torch.kernels.introspect import ops_per_row  # noqa: E402
 from repro_torch.kernels.introspect import bound_ms as bound  # noqa: E402
 
 SEED = 20230131
@@ -308,7 +308,6 @@ TRAIN_4K = (256_000, 4096, 256)
 GEMMA2_PARAMS = 9_241_404_928      # the reference's Model.param_count()
 DECODE_P0 = 64                     # decode-vs-prefill prefix (2 rows)
 GEMMA3_PROMPT = 1024               # past gemma3-1b's 512-token window
-BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 STEP_REPEATS = 10                  # median of 10 where a step repeats
 LLAMA4_LAYERS = 12                 # of 48: 57.0 GB of weights on 80 GB
 SSM_PROMPT = 1000                  # 8 chunks of 128, the last padded
@@ -503,25 +502,31 @@ def round_rows(design_name, device):
 def print_bulk_plans():
     """The bulk kernels' shapes as the CUDA source fixes them (threads,
     tile rows, stages, dynamic shared memory) and the blocks the card
-    holds of each (the persistent grid)."""
+    holds of each (the persistent grid): each source's
+    ``*_bulk_launch_shape`` at rows enough to fill the grid (``bank_fold``
+    at its most instances, whose weights its blocks are held resident
+    with), beside ``_row_tiles.bulk_constants``."""
     from repro_torch.kernels import _build, _row_tiles
     device = torch.device("cuda", torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for lib, symbol, widths in (
-            ("bank_fold", "bank_fold_bulk_shape", _row_tiles.BULK_LIMBS),
-            ("mcim_fold", "mcim_fold_bulk_shape", _row_tiles.BULK_LIMBS),
-            ("karatsuba_ppm", "karatsuba_ppm_bulk_shape", (2,))):
-        fn = getattr(_build.library(lib), symbol)
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
+    rows = 1 << 30
+    for lib, widths in (("bank_fold", _row_tiles.BULK_LIMBS),
+                        ("mcim_fold", _row_tiles.BULK_LIMBS),
+                        ("karatsuba_ppm", (2,))):
         for la in widths:
-            info = (ctypes.c_int * 5)()
-            check(fn(la, info) == 0, f"{symbol}({la}) failed")
-            threads, tile, stages, smem, blocks = info
-            print(f"  {symbol[:-11]} bulk kernel, {la} limbs: {threads} "
-                  f"threads, {tile} rows a tile, {stages} stages, {smem} B "
-                  f"shared, {blocks / sms:g} blocks an SM ({blocks} in "
-                  f"the persistent grid)")
+            args = {"bank_fold": (_row_tiles.BULK_INSTANCES, rows, la, la, 1),
+                    "mcim_fold": (rows, la, la),
+                    "karatsuba_ppm": (rows, la)}[lib]
+            blocks, _, threads, smem = _build.query(
+                lib, f"{lib}_bulk_launch_shape", args)
+            c = _row_tiles.bulk_constants(la)
+            check(threads == c["threads"],
+                  f"{lib} bulk kernel, {la} limbs: {threads} threads, "
+                  f"bulk_constants says {c['threads']}")
+            print(f"  {lib} bulk kernel, {la} limbs: {threads} threads, "
+                  f"{c['tile_rows']} rows a tile, {c['stages']} stages, "
+                  f"{smem} B shared, {blocks / sms:g} blocks an SM "
+                  f"({blocks} in the persistent grid)")
 
 
 def kernel_name(mangled):
@@ -1955,7 +1960,7 @@ def families_hubert(device, smi):
         * t * t * cfg.head_dim
     n_bytes = param_bytes(model) + frames.numel() * 2 + logits.numel() * 2
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"  hubert-xlarge: {model.param_count():,} parameters (full "
           f"width and depth), seeded init {init_s:.3f} s; encoder_forward "
@@ -2187,7 +2192,7 @@ def train_bound(cfg, batch, seq):
                * unmasked_pairs(kind, seq, cfg.window)
                for kind in T.layer_kinds(cfg))
     ops = 3 * (2 * matmul_params(cfg) * batch * seq + attn)
-    return ops / BF16_FLOPS * 1e3, ops
+    return ops / BF16_FLOPS_PER_S * 1e3, ops
 
 
 def pattern_batch(cfg, batch, seq, device):

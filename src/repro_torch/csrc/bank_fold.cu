@@ -99,6 +99,9 @@ __device__ __forceinline__ void table_weights(const int32_t* table,
   const int32_t* w = table + (size_t)inst * max_steps * 2;
 #pragma unroll
   for (int jb = 0; jb < M; ++jb) c[jb] = 0u;
+  // two steps an iteration: on the H100 the kernels then hold fewer
+  // registers at every width (24 limbs: 105, against 109 left to nvcc)
+#pragma unroll 2
   for (int j = 0; j < max_steps; ++j) {
     const int lo = __ldg(w + 2 * j), hi = __ldg(w + 2 * j + 1);
 #pragma unroll
@@ -112,7 +115,6 @@ __device__ __forceinline__ void table_weights(const int32_t* table,
 // per-thread path).
 template <bool kStaged>
 struct BankRows {
-  static constexpr bool kByRow = true;
   const int32_t* owner;    // (B,) instance of each row
   const int32_t* table;    // (n_inst, max_steps, 2) windows
   const uint32_t* staged;  // kStaged: (n_inst, M) weights
@@ -171,7 +173,7 @@ __global__ void __launch_bounds__(tiles::Bulk<L>::kThreads)
     staged[e] = limb_weight(table, max_steps, e / L, e % L);
   }
   __syncthreads();
-  tiles::bulk_walk<L>(a, b, out, 1, rows, smem,
+  tiles::bulk_walk<L>(a, b, out, rows, smem,
                       BankRows<true>{owner, table, staged, max_steps});
 }
 
@@ -184,7 +186,7 @@ __global__ void __launch_bounds__(tiles::kTileRows)
                      uint32_t* __restrict__ out, int rows, int la, int lb,
                      int max_steps) {
   extern __shared__ __align__(128) uint8_t smem[];
-  tiles::coalesced_tile<MAXL>(a, b, out, 0, blockIdx.x, rows, la, lb,
+  tiles::coalesced_tile<MAXL>(a, b, out, blockIdx.x, rows, la, lb,
                               reinterpret_cast<uint32_t*>(smem),
                               BankRows<false>{owner, table, nullptr,
                                               max_steps});
@@ -196,8 +198,8 @@ __global__ void __launch_bounds__(tiles::kTileRows)
 template <int L>
 cudaError_t bulk_launch_at(int n_inst, int rows, int* info) {
   if (n_inst < 1 || n_inst > kMaxInstances) return cudaErrorInvalidValue;
-  return tiles::bulk_launch_shape<L>(bank_fold_bulk_kernel<L>, 1, rows,
-                                     info, weight_bytes<L>(n_inst),
+  return tiles::bulk_launch_shape<L>(bank_fold_bulk_kernel<L>, rows, info,
+                                     weight_bytes<L>(n_inst),
                                      weight_bytes<L>(kMaxInstances));
 }
 
@@ -224,10 +226,9 @@ cudaError_t launch(const uint32_t* a, const uint32_t* b,
                    uint32_t* out, int rows, int la, int lb, int max_steps,
                    cudaStream_t stream) {
   int info[4];
-  tiles::tile_launch_shape(MAXL, 1, rows, la, lb, info);
-  bank_fold_kernel<MAXL><<<dim3(info[0], info[1]), info[2], info[3],
-                           stream>>>(a, b, owner, table, out, rows, la, lb,
-                                     max_steps);
+  tiles::tile_launch_shape(MAXL, rows, la, lb, info);
+  bank_fold_kernel<MAXL><<<info[0], info[2], info[3], stream>>>(
+      a, b, owner, table, out, rows, la, lb, max_steps);
   return cudaGetLastError();
 }
 
@@ -239,20 +240,13 @@ extern "C" int bank_fold_launch(const void* a, const void* b,
                                 const void* owner, const void* table,
                                 void* out, int n_inst, int rows, int la,
                                 int lb, int max_steps, void* stream) {
-  auto* pa = static_cast<const uint32_t*>(a);
-  auto* pb = static_cast<const uint32_t*>(b);
-  auto* po = static_cast<const int32_t*>(owner);
-  auto* pt = static_cast<const int32_t*>(table);
-  auto* pout = static_cast<uint32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
-  switch (limbs::bucket(la, lb)) {
-    case 2: return launch<2>(pa, pb, po, pt, pout, rows, la, lb, max_steps, s);
-    case 4: return launch<4>(pa, pb, po, pt, pout, rows, la, lb, max_steps, s);
-    case 8: return launch<8>(pa, pb, po, pt, pout, rows, la, lb, max_steps, s);
-    case 16: return launch<16>(pa, pb, po, pt, pout, rows, la, lb, max_steps, s);
-    default: return launch<24>(pa, pb, po, pt, pout, rows, la, lb, max_steps, s);
-  }
+  return limbs::with_bucket(la, lb, [&](auto w) {
+    return launch<decltype(w)::value>(
+        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+        static_cast<const int32_t*>(owner),
+        static_cast<const int32_t*>(table), static_cast<uint32_t*>(out),
+        rows, la, lb, max_steps, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // The bulk path: LA = LB = 2, 4, 8, 16 or 24 limbs, 16-byte-aligned
@@ -262,34 +256,13 @@ extern "C" int bank_fold_bulk_launch(const void* a, const void* b,
                                      void* out, int n_inst, int rows,
                                      int la, int lb, int max_steps,
                                      void* stream) {
-  auto* pa = static_cast<const uint32_t*>(a);
-  auto* pb = static_cast<const uint32_t*>(b);
-  auto* po = static_cast<const int32_t*>(owner);
-  auto* pt = static_cast<const int32_t*>(table);
-  auto* pout = static_cast<uint32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (la != lb) return cudaErrorInvalidValue;
-  switch (la) {
-    case 2: return launch_bulk<2>(pa, pb, po, pt, pout, n_inst, rows, max_steps, s);
-    case 4: return launch_bulk<4>(pa, pb, po, pt, pout, n_inst, rows, max_steps, s);
-    case 8: return launch_bulk<8>(pa, pb, po, pt, pout, n_inst, rows, max_steps, s);
-    case 16: return launch_bulk<16>(pa, pb, po, pt, pout, n_inst, rows, max_steps, s);
-    case 24: return launch_bulk<24>(pa, pb, po, pt, pout, n_inst, rows, max_steps, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// The bulk kernel's shape at la limbs on this device (tiles::bulk_shape;
-// the shared bytes of a launch of kMaxInstances instances).
-extern "C" int bank_fold_bulk_shape(int la, int* info) {
-  switch (la) {
-    case 2: return tiles::bulk_shape<2>(bank_fold_bulk_kernel<2>, info, weight_bytes<2>(kMaxInstances));
-    case 4: return tiles::bulk_shape<4>(bank_fold_bulk_kernel<4>, info, weight_bytes<4>(kMaxInstances));
-    case 8: return tiles::bulk_shape<8>(bank_fold_bulk_kernel<8>, info, weight_bytes<8>(kMaxInstances));
-    case 16: return tiles::bulk_shape<16>(bank_fold_bulk_kernel<16>, info, weight_bytes<16>(kMaxInstances));
-    case 24: return tiles::bulk_shape<24>(bank_fold_bulk_kernel<24>, info, weight_bytes<24>(kMaxInstances));
-    default: return cudaErrorInvalidValue;
-  }
+  return tiles::with_bulk_width(la, lb, [&](auto w) {
+    return launch_bulk<decltype(w)::value>(
+        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+        static_cast<const int32_t*>(owner),
+        static_cast<const int32_t*>(table), static_cast<uint32_t*>(out),
+        n_inst, rows, max_steps, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // The launch each entry above makes for these arguments, and the
@@ -299,45 +272,31 @@ extern "C" int bank_fold_bulk_shape(int la, int* info) {
 // kernels/bank_fold/ops.py are held to them).
 extern "C" int bank_fold_launch_shape(int n_inst, int rows, int la, int lb,
                                       int max_steps, int* info) {
-  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
-  tiles::tile_launch_shape(limbs::bucket(la, lb), 1, rows, la, lb, info);
+  const int maxl = limbs::bucket(la, lb);
+  if (maxl == 0) return cudaErrorInvalidValue;
+  tiles::tile_launch_shape(maxl, rows, la, lb, info);
   return cudaSuccess;
 }
 
 extern "C" int bank_fold_attributes(int n_inst, int rows, int la, int lb,
                                     int max_steps, int* info) {
-  switch (limbs::bucket(la, lb)) {
-    case 2: return tiles::attributes(bank_fold_kernel<2>, info);
-    case 4: return tiles::attributes(bank_fold_kernel<4>, info);
-    case 8: return tiles::attributes(bank_fold_kernel<8>, info);
-    case 16: return tiles::attributes(bank_fold_kernel<16>, info);
-    default: return tiles::attributes(bank_fold_kernel<24>, info);
-  }
+  return limbs::with_bucket(la, lb, [&](auto w) {
+    return tiles::attributes(bank_fold_kernel<decltype(w)::value>, info);
+  });
 }
 
 extern "C" int bank_fold_bulk_launch_shape(int n_inst, int rows, int la,
                                            int lb, int max_steps,
                                            int* info) {
-  if (la != lb) return cudaErrorInvalidValue;
-  switch (la) {
-    case 2: return bulk_launch_at<2>(n_inst, rows, info);
-    case 4: return bulk_launch_at<4>(n_inst, rows, info);
-    case 8: return bulk_launch_at<8>(n_inst, rows, info);
-    case 16: return bulk_launch_at<16>(n_inst, rows, info);
-    case 24: return bulk_launch_at<24>(n_inst, rows, info);
-    default: return cudaErrorInvalidValue;
-  }
+  return tiles::with_bulk_width(la, lb, [&](auto w) {
+    return bulk_launch_at<decltype(w)::value>(n_inst, rows, info);
+  });
 }
 
 extern "C" int bank_fold_bulk_attributes(int n_inst, int rows, int la,
                                          int lb, int max_steps, int* info) {
-  if (la != lb) return cudaErrorInvalidValue;
-  switch (la) {
-    case 2: return tiles::attributes(bank_fold_bulk_kernel<2>, info);
-    case 4: return tiles::attributes(bank_fold_bulk_kernel<4>, info);
-    case 8: return tiles::attributes(bank_fold_bulk_kernel<8>, info);
-    case 16: return tiles::attributes(bank_fold_bulk_kernel<16>, info);
-    case 24: return tiles::attributes(bank_fold_bulk_kernel<24>, info);
-    default: return cudaErrorInvalidValue;
-  }
+  return tiles::with_bulk_width(la, lb, [&](auto w) {
+    return tiles::attributes(bank_fold_bulk_kernel<decltype(w)::value>,
+                             info);
+  });
 }

@@ -32,6 +32,12 @@ namespace kara {
 using limbs::kMask;
 using limbs::kRadixBits;
 
+// The N the Karatsuba kernels are compiled for, every even N up to
+// limbs::kMaxLimbs: `EvenN::dispatch(n, f)` reaches the kernels of N = n.
+using EvenN = limbs::Widths<2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24>;
+static_assert(EvenN::at_least(limbs::kMaxLimbs) == limbs::kMaxLimbs,
+              "N up to the widest operand");
+
 // t = x * y, L limbs each: the exact 2L-limb product. Limb products go
 // whole into 2L-1 columns of 64-bit sums (each below L * 2**32), and one
 // carry pass cuts them into canonical limbs; the top limb is the last
@@ -73,18 +79,16 @@ __device__ __forceinline__ void half_sum(const uint32_t* x,
 }
 
 // The row arithmetic of rows of N limbs, for tiles::coalesced_tile and
-// tiles::bulk_walk. It keeps no tile state.
+// tiles::bulk_walk. It keeps no state: its owner is 0, and it zeroes the
+// weights, which its product does not read (left unset, they cost the
+// folded Karatsuba registers on the H100: 123 against 96 at N = 24).
 template <int N>
 struct KaraRows {
+  __device__ __forceinline__ int row_owner(size_t) const { return 0; }
   template <int M>
-  __device__ __forceinline__ void weights(int, uint32_t (&w)[M]) const {
+  __device__ __forceinline__ void row_weights(int, uint32_t (&w)[M]) const {
 #pragma unroll
     for (int k = 0; k < M; ++k) w[k] = 0u;
-  }
-  template <int M>
-  __device__ __forceinline__ void warp_weights(int inst,
-                                               uint32_t (&w)[M]) const {
-    weights(inst, w);
   }
 
   template <int M>

@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(tiles::Bulk<2>::kThreads)
                               const uint32_t* __restrict__ b,
                               uint32_t* __restrict__ out, int bsz) {
   extern __shared__ __align__(128) uint8_t smem[];
-  tiles::bulk_walk<2>(a, b, out, 1, bsz, smem, KaraRows<2>{});
+  tiles::bulk_walk<2>(a, b, out, bsz, smem, KaraRows<2>{});
 }
 
 template <int N>
@@ -51,7 +51,7 @@ __global__ void __launch_bounds__(tiles::kTileRows)
                          const uint32_t* __restrict__ b,
                          uint32_t* __restrict__ out, int bsz) {
   extern __shared__ __align__(128) uint8_t smem[];
-  tiles::coalesced_tile<N>(a, b, out, 0, blockIdx.x, bsz, N, N,
+  tiles::coalesced_tile<N>(a, b, out, blockIdx.x, bsz, N, N,
                            reinterpret_cast<uint32_t*>(smem),
                            KaraRows<N>{});
 }
@@ -60,7 +60,7 @@ template <int N>
 cudaError_t launch(const void* a, const void* b, void* out, int bsz,
                    void* stream) {
   int info[4];
-  tiles::tile_launch_shape(N, 1, bsz, N, N, info);
+  tiles::tile_launch_shape(N, bsz, N, N, info);
   karatsuba_ppm_kernel<N><<<info[0], info[2], info[3],
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
@@ -71,7 +71,7 @@ cudaError_t launch(const void* a, const void* b, void* out, int bsz,
 // The bulk launch: rows of 2 limbs (tiles::bulk_launch_shape).
 cudaError_t bulk_launch_at(int bsz, int n, int* info) {
   if (n != 2) return cudaErrorInvalidValue;
-  return tiles::bulk_launch_shape<2>(karatsuba_ppm_bulk_kernel, 1, bsz, info);
+  return tiles::bulk_launch_shape<2>(karatsuba_ppm_bulk_kernel, bsz, info);
 }
 
 }  // namespace
@@ -80,21 +80,9 @@ cudaError_t bulk_launch_at(int bsz, int n, int* info) {
 // (limbs::kMaxLimbs); any 4-byte alignment.
 extern "C" int karatsuba_ppm_launch(const void* a, const void* b, void* out,
                                     int bsz, int n, void* stream) {
-  switch (n) {
-    case 2: return launch<2>(a, b, out, bsz, stream);
-    case 4: return launch<4>(a, b, out, bsz, stream);
-    case 6: return launch<6>(a, b, out, bsz, stream);
-    case 8: return launch<8>(a, b, out, bsz, stream);
-    case 10: return launch<10>(a, b, out, bsz, stream);
-    case 12: return launch<12>(a, b, out, bsz, stream);
-    case 14: return launch<14>(a, b, out, bsz, stream);
-    case 16: return launch<16>(a, b, out, bsz, stream);
-    case 18: return launch<18>(a, b, out, bsz, stream);
-    case 20: return launch<20>(a, b, out, bsz, stream);
-    case 22: return launch<22>(a, b, out, bsz, stream);
-    case 24: return launch<24>(a, b, out, bsz, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return kara::EvenN::dispatch(n, [&](auto w) {
+    return launch<decltype(w)::value>(a, b, out, bsz, stream);
+  });
 }
 
 // The bulk path: n = 2 limbs, 16-byte-aligned operands, bsz even.
@@ -115,40 +103,21 @@ extern "C" int karatsuba_ppm_bulk_launch(const void* a, const void* b,
   return cudaGetLastError();
 }
 
-// The bulk kernel's shape at n = 2 limbs on this device
-// (tiles::bulk_shape).
-extern "C" int karatsuba_ppm_bulk_shape(int n, int* info) {
-  if (n != 2) return cudaErrorInvalidValue;
-  return tiles::bulk_shape<2>(karatsuba_ppm_bulk_kernel, info);
-}
-
 // The launch each entry above makes for these arguments, and the
 // attributes of the kernel it launches: info = {grid.x, grid.y, threads,
 // dynamic shared bytes} and {registers, local bytes, static shared
 // bytes, most threads a block} (the launch contract of
 // kernels/karatsuba_ppm/ops.py is held to them).
 extern "C" int karatsuba_ppm_launch_shape(int bsz, int n, int* info) {
-  if (n < 2 || n > limbs::kMaxLimbs || n % 2) return cudaErrorInvalidValue;
-  tiles::tile_launch_shape(n, 1, bsz, n, n, info);
+  if (!kara::EvenN::contains(n)) return cudaErrorInvalidValue;
+  tiles::tile_launch_shape(n, bsz, n, n, info);
   return cudaSuccess;
 }
 
 extern "C" int karatsuba_ppm_attributes(int bsz, int n, int* info) {
-  switch (n) {
-    case 2: return tiles::attributes(karatsuba_ppm_kernel<2>, info);
-    case 4: return tiles::attributes(karatsuba_ppm_kernel<4>, info);
-    case 6: return tiles::attributes(karatsuba_ppm_kernel<6>, info);
-    case 8: return tiles::attributes(karatsuba_ppm_kernel<8>, info);
-    case 10: return tiles::attributes(karatsuba_ppm_kernel<10>, info);
-    case 12: return tiles::attributes(karatsuba_ppm_kernel<12>, info);
-    case 14: return tiles::attributes(karatsuba_ppm_kernel<14>, info);
-    case 16: return tiles::attributes(karatsuba_ppm_kernel<16>, info);
-    case 18: return tiles::attributes(karatsuba_ppm_kernel<18>, info);
-    case 20: return tiles::attributes(karatsuba_ppm_kernel<20>, info);
-    case 22: return tiles::attributes(karatsuba_ppm_kernel<22>, info);
-    case 24: return tiles::attributes(karatsuba_ppm_kernel<24>, info);
-    default: return cudaErrorInvalidValue;
-  }
+  return kara::EvenN::dispatch(n, [&](auto w) {
+    return tiles::attributes(karatsuba_ppm_kernel<decltype(w)::value>, info);
+  });
 }
 
 extern "C" int karatsuba_ppm_bulk_launch_shape(int bsz, int n, int* info) {

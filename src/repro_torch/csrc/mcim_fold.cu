@@ -83,15 +83,11 @@ namespace {
 // bulk path cannot take returns cudaErrorInvalidValue, as does one of
 // rows wider than limbs::kMaxLimbs on any path.
 struct ExactRows {
+  __device__ __forceinline__ int row_owner(size_t) const { return 0; }
   template <int M>
-  __device__ __forceinline__ void weights(int, uint32_t (&c)[M]) const {
+  __device__ __forceinline__ void row_weights(int, uint32_t (&c)[M]) const {
 #pragma unroll
     for (int jb = 0; jb < M; ++jb) c[jb] = 1u;
-  }
-  template <int M>
-  __device__ __forceinline__ void warp_weights(int inst,
-                                               uint32_t (&c)[M]) const {
-    weights(inst, c);
   }
   template <int M>
   __device__ __forceinline__ void product(const uint32_t (&a)[M],
@@ -109,7 +105,7 @@ __global__ void __launch_bounds__(tiles::Bulk<L>::kThreads)
                      const uint32_t* __restrict__ b,
                      uint32_t* __restrict__ out, int bsz) {
   extern __shared__ __align__(128) uint8_t smem[];
-  tiles::bulk_walk<L>(a, b, out, 1, bsz, smem, ExactRows{});
+  tiles::bulk_walk<L>(a, b, out, bsz, smem, ExactRows{});
 }
 
 template <int MAXL>
@@ -118,7 +114,7 @@ __global__ void __launch_bounds__(tiles::kTileRows)
                 const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
                 int bsz, int la, int lb) {
   extern __shared__ __align__(128) uint8_t smem[];
-  tiles::coalesced_tile<MAXL>(a, b, out, 0, blockIdx.x, bsz, la, lb,
+  tiles::coalesced_tile<MAXL>(a, b, out, blockIdx.x, bsz, la, lb,
                               reinterpret_cast<uint32_t*>(smem),
                               ExactRows{});
 }
@@ -131,7 +127,7 @@ __global__ void __launch_bounds__(tiles::kTileRows)
                      const uint32_t* __restrict__ b,
                      uint32_t* __restrict__ out, int bsz, int la, int lb) {
   extern __shared__ __align__(128) uint8_t smem[];
-  tiles::coalesced_tile<N>(a, b, out, 0, blockIdx.x, bsz, la, lb,
+  tiles::coalesced_tile<N>(a, b, out, blockIdx.x, bsz, la, lb,
                            reinterpret_cast<uint32_t*>(smem),
                            kara::KaraRows<N>{});
 }
@@ -139,32 +135,36 @@ __global__ void __launch_bounds__(tiles::kTileRows)
 // A per-thread kernel of MAXL limbs (fold_kernel, kara_fold_kernel): one
 // block a tile (tiles::tile_launch_shape).
 template <int MAXL, class Kernel>
-cudaError_t launch_tiles(Kernel kernel, const uint32_t* a, const uint32_t* b,
-                         uint32_t* out, int bsz, int la, int lb,
-                         cudaStream_t s) {
+cudaError_t launch_tiles(Kernel kernel, const void* a, const void* b,
+                         void* out, int bsz, int la, int lb, void* stream) {
   int info[4];
-  tiles::tile_launch_shape(MAXL, 1, bsz, la, lb, info);
-  kernel<<<info[0], info[2], info[3], s>>>(a, b, out, bsz, la, lb);
+  tiles::tile_launch_shape(MAXL, bsz, la, lb, info);
+  kernel<<<info[0], info[2], info[3], static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), bsz, la, lb);
   return cudaGetLastError();
 }
 
 // FB's and FF's bulk launch at L limbs (tiles::bulk_launch_shape).
 template <int L>
-cudaError_t fold_bulk_shape(int bsz, int* info) {
-  return tiles::bulk_launch_shape<L>(fold_bulk_kernel<L>, 1, bsz, info);
+cudaError_t bulk_launch_at(int bsz, int* info) {
+  return tiles::bulk_launch_shape<L>(fold_bulk_kernel<L>, bsz, info);
 }
 
 template <int L>
-cudaError_t launch_fold_bulk(const uint32_t* a, const uint32_t* b,
-                             uint32_t* out, int bsz, cudaStream_t s) {
+cudaError_t launch_fold_bulk(const void* a, const void* b, void* out,
+                             int bsz, void* stream) {
   if (!tiles::aligned16(a) || !tiles::aligned16(b) ||
       !tiles::aligned16(out)) {
     return cudaErrorInvalidValue;
   }
   int info[4];
-  const cudaError_t err = fold_bulk_shape<L>(bsz, info);
+  const cudaError_t err = bulk_launch_at<L>(bsz, info);
   if (err != cudaSuccess) return err;
-  fold_bulk_kernel<L><<<info[0], info[2], info[3], s>>>(a, b, out, bsz);
+  fold_bulk_kernel<L><<<info[0], info[2], info[3],
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), bsz);
   return cudaGetLastError();
 }
 
@@ -174,15 +174,6 @@ inline int kara_n(int la, int lb) {
   return n + n % 2;
 }
 
-template <int N>
-cudaError_t launch_kara(const void* a, const void* b, void* out, int bsz,
-                        int la, int lb, void* stream) {
-  return launch_tiles<N>(kara_fold_kernel<N>, static_cast<const uint32_t*>(a),
-                         static_cast<const uint32_t*>(b),
-                         static_cast<uint32_t*>(out), bsz, la, lb,
-                         static_cast<cudaStream_t>(stream));
-}
-
 }  // namespace
 
 // FB and FF (one function, the exact product) on the per-thread path:
@@ -190,20 +181,10 @@ cudaError_t launch_kara(const void* a, const void* b, void* out, int bsz,
 // to limbs::kMaxLimbs, any 4-byte alignment.
 extern "C" int mcim_fold_launch(const void* a, const void* b, void* out,
                                 int bsz, int la, int lb, void* stream) {
-  auto* pa = static_cast<const uint32_t*>(a);
-  auto* pb = static_cast<const uint32_t*>(b);
-  auto* po = static_cast<uint32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
-  switch (limbs::bucket(la, lb)) {
-    case 2: return launch_tiles<2>(fold_kernel<2>, pa, pb, po, bsz, la, lb, s);
-    case 4: return launch_tiles<4>(fold_kernel<4>, pa, pb, po, bsz, la, lb, s);
-    case 8: return launch_tiles<8>(fold_kernel<8>, pa, pb, po, bsz, la, lb, s);
-    case 16:
-      return launch_tiles<16>(fold_kernel<16>, pa, pb, po, bsz, la, lb, s);
-    default:
-      return launch_tiles<24>(fold_kernel<24>, pa, pb, po, bsz, la, lb, s);
-  }
+  return limbs::with_bucket(la, lb, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return launch_tiles<W>(fold_kernel<W>, a, b, out, bsz, la, lb, stream);
+  });
 }
 
 // FB and FF on the bulk path: LA = LB = 2, 4, 8, 16 or 24 limbs,
@@ -211,32 +192,9 @@ extern "C" int mcim_fold_launch(const void* a, const void* b, void* out,
 extern "C" int mcim_fold_bulk_launch(const void* a, const void* b,
                                      void* out, int bsz, int la, int lb,
                                      void* stream) {
-  auto* pa = static_cast<const uint32_t*>(a);
-  auto* pb = static_cast<const uint32_t*>(b);
-  auto* po = static_cast<uint32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (la != lb) return cudaErrorInvalidValue;
-  switch (la) {
-    case 2: return launch_fold_bulk<2>(pa, pb, po, bsz, s);
-    case 4: return launch_fold_bulk<4>(pa, pb, po, bsz, s);
-    case 8: return launch_fold_bulk<8>(pa, pb, po, bsz, s);
-    case 16: return launch_fold_bulk<16>(pa, pb, po, bsz, s);
-    case 24: return launch_fold_bulk<24>(pa, pb, po, bsz, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// FB's and FF's bulk kernel's shape at la limbs on this device
-// (tiles::bulk_shape).
-extern "C" int mcim_fold_bulk_shape(int la, int* info) {
-  switch (la) {
-    case 2: return tiles::bulk_shape<2>(fold_bulk_kernel<2>, info);
-    case 4: return tiles::bulk_shape<4>(fold_bulk_kernel<4>, info);
-    case 8: return tiles::bulk_shape<8>(fold_bulk_kernel<8>, info);
-    case 16: return tiles::bulk_shape<16>(fold_bulk_kernel<16>, info);
-    case 24: return tiles::bulk_shape<24>(fold_bulk_kernel<24>, info);
-    default: return cudaErrorInvalidValue;
-  }
+  return tiles::with_bulk_width(la, lb, [&](auto w) {
+    return launch_fold_bulk<decltype(w)::value>(a, b, out, bsz, stream);
+  });
 }
 
 // The folded Karatsuba: a, b: (bsz, la), (bsz, lb) limbs; out: (bsz,
@@ -244,21 +202,11 @@ extern "C" int mcim_fold_bulk_shape(int la, int* info) {
 extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
                                           void* out, int bsz, int la,
                                           int lb, void* stream) {
-  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
-  switch (kara_n(la, lb)) {
-    case 2: return launch_kara<2>(a, b, out, bsz, la, lb, stream);
-    case 4: return launch_kara<4>(a, b, out, bsz, la, lb, stream);
-    case 6: return launch_kara<6>(a, b, out, bsz, la, lb, stream);
-    case 8: return launch_kara<8>(a, b, out, bsz, la, lb, stream);
-    case 10: return launch_kara<10>(a, b, out, bsz, la, lb, stream);
-    case 12: return launch_kara<12>(a, b, out, bsz, la, lb, stream);
-    case 14: return launch_kara<14>(a, b, out, bsz, la, lb, stream);
-    case 16: return launch_kara<16>(a, b, out, bsz, la, lb, stream);
-    case 18: return launch_kara<18>(a, b, out, bsz, la, lb, stream);
-    case 20: return launch_kara<20>(a, b, out, bsz, la, lb, stream);
-    case 22: return launch_kara<22>(a, b, out, bsz, la, lb, stream);
-    default: return launch_kara<24>(a, b, out, bsz, la, lb, stream);
-  }
+  return kara::EvenN::dispatch(kara_n(la, lb), [&](auto w) {
+    constexpr int N = decltype(w)::value;
+    return launch_tiles<N>(kara_fold_kernel<N>, a, b, out, bsz, la, lb,
+                           stream);
+  });
 }
 
 // The launch each entry above makes for these arguments, and the
@@ -267,68 +215,43 @@ extern "C" int mcim_fold_karatsuba_launch(const void* a, const void* b,
 // bytes, most threads a block} (the launch contracts of
 // kernels/mcim_fold/ops.py are held to them).
 extern "C" int mcim_fold_launch_shape(int bsz, int la, int lb, int* info) {
-  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
-  tiles::tile_launch_shape(limbs::bucket(la, lb), 1, bsz, la, lb, info);
+  const int maxl = limbs::bucket(la, lb);
+  if (maxl == 0) return cudaErrorInvalidValue;
+  tiles::tile_launch_shape(maxl, bsz, la, lb, info);
   return cudaSuccess;
 }
 
 extern "C" int mcim_fold_attributes(int bsz, int la, int lb, int* info) {
-  switch (limbs::bucket(la, lb)) {
-    case 2: return tiles::attributes(fold_kernel<2>, info);
-    case 4: return tiles::attributes(fold_kernel<4>, info);
-    case 8: return tiles::attributes(fold_kernel<8>, info);
-    case 16: return tiles::attributes(fold_kernel<16>, info);
-    default: return tiles::attributes(fold_kernel<24>, info);
-  }
+  return limbs::with_bucket(la, lb, [&](auto w) {
+    return tiles::attributes(fold_kernel<decltype(w)::value>, info);
+  });
 }
 
 extern "C" int mcim_fold_bulk_launch_shape(int bsz, int la, int lb,
                                            int* info) {
-  if (la != lb) return cudaErrorInvalidValue;
-  switch (la) {
-    case 2: return fold_bulk_shape<2>(bsz, info);
-    case 4: return fold_bulk_shape<4>(bsz, info);
-    case 8: return fold_bulk_shape<8>(bsz, info);
-    case 16: return fold_bulk_shape<16>(bsz, info);
-    case 24: return fold_bulk_shape<24>(bsz, info);
-    default: return cudaErrorInvalidValue;
-  }
+  return tiles::with_bulk_width(la, lb, [&](auto w) {
+    return bulk_launch_at<decltype(w)::value>(bsz, info);
+  });
 }
 
 extern "C" int mcim_fold_bulk_attributes(int bsz, int la, int lb,
                                          int* info) {
-  if (la != lb) return cudaErrorInvalidValue;
-  switch (la) {
-    case 2: return tiles::attributes(fold_bulk_kernel<2>, info);
-    case 4: return tiles::attributes(fold_bulk_kernel<4>, info);
-    case 8: return tiles::attributes(fold_bulk_kernel<8>, info);
-    case 16: return tiles::attributes(fold_bulk_kernel<16>, info);
-    case 24: return tiles::attributes(fold_bulk_kernel<24>, info);
-    default: return cudaErrorInvalidValue;
-  }
+  return tiles::with_bulk_width(la, lb, [&](auto w) {
+    return tiles::attributes(fold_bulk_kernel<decltype(w)::value>, info);
+  });
 }
 
 extern "C" int mcim_fold_karatsuba_launch_shape(int bsz, int la, int lb,
                                                 int* info) {
-  if (limbs::too_wide(la, lb)) return cudaErrorInvalidValue;
-  tiles::tile_launch_shape(kara_n(la, lb), 1, bsz, la, lb, info);
+  const int n = kara_n(la, lb);
+  if (!kara::EvenN::contains(n)) return cudaErrorInvalidValue;
+  tiles::tile_launch_shape(n, bsz, la, lb, info);
   return cudaSuccess;
 }
 
 extern "C" int mcim_fold_karatsuba_attributes(int bsz, int la, int lb,
                                               int* info) {
-  switch (kara_n(la, lb)) {
-    case 2: return tiles::attributes(kara_fold_kernel<2>, info);
-    case 4: return tiles::attributes(kara_fold_kernel<4>, info);
-    case 6: return tiles::attributes(kara_fold_kernel<6>, info);
-    case 8: return tiles::attributes(kara_fold_kernel<8>, info);
-    case 10: return tiles::attributes(kara_fold_kernel<10>, info);
-    case 12: return tiles::attributes(kara_fold_kernel<12>, info);
-    case 14: return tiles::attributes(kara_fold_kernel<14>, info);
-    case 16: return tiles::attributes(kara_fold_kernel<16>, info);
-    case 18: return tiles::attributes(kara_fold_kernel<18>, info);
-    case 20: return tiles::attributes(kara_fold_kernel<20>, info);
-    case 22: return tiles::attributes(kara_fold_kernel<22>, info);
-    default: return tiles::attributes(kara_fold_kernel<24>, info);
-  }
+  return kara::EvenN::dispatch(kara_n(la, lb), [&](auto w) {
+    return tiles::attributes(kara_fold_kernel<decltype(w)::value>, info);
+  });
 }

@@ -6,18 +6,15 @@
 // (mcim_fold.cu) on the per-thread one. What bounds
 // them on the H100 is moving those rows, so this header moves the rows
 // and leaves a row's arithmetic to the kernel's functor, which supplies
-// * `weights(inst, w)`: the state of a tile of instance `inst`, M words,
-//   and, for the bulk walk, `warp_weights(inst, w)`: the same, every
-//   lane of the warp calling it, once a tile;
+// * `row_owner(row)`: whose state row `row` takes (bank_fold: the
+//   instance its owner table names; the others: 0, reading no memory);
+// * `row_weights(owner, w)`: that state, M words (bank_fold: the owner's
+//   limb weights; FB and FF: all ones; the Karatsubas: zeros they do not
+//   read);
 // * `product(a, b, w, cols, n)`: the row's product, (M, M) limbs -> 2M
 //   columns, carried to canonical limbs over columns [0, n).
-// A functor whose state is a row's rather than a tile's declares
-// `static constexpr bool kByRow = true` and supplies, in place of the
-// weights, `row_owner(row)` (the instance that computes row `row`) and
-// `row_weights(owner, w)` (that instance's state); the walks then look
-// the state up row by row (bank_fold's rows in batch order). Which of
-// the two a walk does is fixed by the functor's type at compile time, so
-// the other functors compile to the walks they always had.
+// A functor whose owner and weights are constants compiles to a walk
+// that looks nothing up.
 // bank_fold, FB and FF multiply by one weighted schoolbook (`schoolbook`
 // below): their state is how many of a fold's steps take each B limb
 // (FB and FF: 1 for every limb; bank_fold: the windows of the row's
@@ -32,7 +29,7 @@
 // * bulk_walk, for rows of LA = LB = L limbs (L = 2, 4, 8, 16, 24) whose
 //   spans are 16-byte aligned: a persistent grid, each block walking
 //   tiles blockIdx.x, blockIdx.x + gridDim.x, ... of Bulk<L>::kTileRows
-//   rows inside one instance. One thread issues two 1-D TMA bulk copies a
+//   rows. One thread issues two 1-D TMA bulk copies a
 //   tile (the A span and the B span) into a ring of Bulk<L>::kStages
 //   shared buffers, completing on the stage's mbarrier, that many tiles
 //   ahead of the compute. Each thread reads its row as 8- or 16-byte
@@ -51,19 +48,9 @@
 //   neighbouring words.
 #pragma once
 
-#include <type_traits>
-
 #include "limbs.cuh"
 
 namespace tiles {
-
-// Whether a row functor's state is looked up row by row (it declares
-// `static constexpr bool kByRow = true`), rather than once a tile.
-template <class Fold, class = void>
-struct ByRow : std::false_type {};
-template <class Fold>
-struct ByRow<Fold, std::void_t<decltype(Fold::kByRow)>>
-    : std::bool_constant<Fold::kByRow> {};
 
 // shared memory a block may use on the H100
 constexpr size_t kSmemLimit = 232448;
@@ -77,10 +64,13 @@ constexpr int kTileRows = limbs::kThreads;
 // straight from registers (no output slots). Above, two output slots let
 // a tile's bulk store drain while the next tile computes. At 8, 16 and 24
 // limbs two blocks an SM; at 2 and 4 as many as fit.
+// The widths (LA = LB) the bulk kernels are compiled for
+// (kernels/_row_tiles.py BULK_LIMBS).
+using BulkWidths = limbs::Widths<2, 4, 8, 16, 24>;
+
 template <int L>
 struct Bulk {
-  static_assert(L == 2 || L == 4 || L == 8 || L == 16 || L == 24,
-                "bulk widths");
+  static_assert(BulkWidths::contains(L), "bulk widths");
   static constexpr int kRowsPerThread = L == 2 ? 2 : 1;
   static constexpr int kThreads = L <= 4 ? 256 : 128;
   static constexpr int kTileRows = kRowsPerThread * kThreads;
@@ -93,6 +83,14 @@ struct Bulk {
       (size_t)(kStages + kSlots) * kTileRows * 2 * L * 4 + 8 * kStages;
   static_assert(kBytes <= kSmemLimit, "a bulk block fits shared memory");
 };
+
+// f(std::integral_constant<int, la>) for rows of la = lb limbs the bulk
+// kernels are compiled for, else cudaErrorInvalidValue.
+template <class F>
+cudaError_t with_bulk_width(int la, int lb, F&& f) {
+  if (la != lb) return cudaErrorInvalidValue;
+  return BulkWidths::dispatch(la, f);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -237,10 +235,10 @@ __device__ __forceinline__ void write_row(uint32_t* tile, int r,
 // bit for bit, the fold's loop of windowed partial products (the limbs
 // of each step's window, once a step): uint32 column sums are sums mod
 // 2**32, so c copies of a term add c times the term. With kSkipZero, B
-// limbs of weight 0 add nothing and are skipped (a test the same for
-// every thread of a warp where the weights are a tile's); weights looked
-// up by row multiply as they are, so lanes of other instances take the
-// same instructions.
+// limbs of weight 0 add nothing and are skipped (a test that constant
+// weights, FB's and FF's, fold away when the kernel compiles); bank_fold's
+// weights, looked up by row, multiply as they are, so lanes of other
+// instances take the same instructions.
 template <int M, bool kSkipZero = true>
 __device__ __forceinline__ void ppm_weighted(const uint32_t (&a)[M],
                                              const uint32_t (&b)[M],
@@ -327,41 +325,39 @@ __device__ __forceinline__ void schoolbook(const uint32_t (&a)[M],
   }
 }
 
-// The owners of this thread's rows (t, t + T, ...) of a tile of n rows
-// from row `first`, for a functor of ByRow (0 past the tile's end).
+// The owners of this thread's rows (t, t + T, ...) of the tile of n rows
+// from row `row0` (0 past the tile's end).
 template <int R, int T, class Fold>
-__device__ __forceinline__ void tile_owners(const Fold& fold, size_t first,
+__device__ __forceinline__ void tile_owners(const Fold& fold, int row0,
                                             int n, int (&o)[R]) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    o[k] = tid + k * T < n ? fold.row_owner(first + tid + k * T) : 0;
+    o[k] = tid + k * T < n ? fold.row_owner((size_t)row0 + tid + k * T) : 0;
   }
 }
 
-// The bulk path: n_inst instances of `rows` rows, rows of L words in a
-// and b and 2L in out, walked in tiles of Bulk<L>::kTileRows rows by a
-// persistent grid of Bulk<L>::kThreads threads a block (thread t takes
-// rows t, t + kThreads, ... of a tile, so a warp's accesses stay
-// contiguous). Needs 16-byte-aligned a, b, out, rows * L a multiple of
-// 4 (so that every tile's spans are whole 16-byte units) and n_inst *
-// tiles an instance below 2**31; `smem` holds Bulk<L>::kBytes bytes.
-// Every thread calls fold.warp_weights once a tile; for a functor of
-// ByRow, it loads the owners of its rows of the next tile while this one
-// computes, and looks each row's weights up by its owner.
+// The bulk path: `rows` rows, of L words in a and b and 2L in out, walked
+// in tiles of Bulk<L>::kTileRows rows by a persistent grid of
+// Bulk<L>::kThreads threads a block (thread t takes rows t, t + kThreads,
+// ... of a tile, so a warp's accesses stay contiguous). Needs
+// 16-byte-aligned a, b, out, rows * L a multiple of 4 (so that every
+// tile's spans are whole 16-byte units) and fewer than 2**31 tiles;
+// `smem` holds Bulk<L>::kBytes bytes. Each thread loads the owners of its
+// rows of the next tile while this one computes, and looks each row's
+// weights up by its owner.
 template <int L, class Fold>
 __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
                                           const uint32_t* __restrict__ b,
                                           uint32_t* __restrict__ out,
-                                          int n_inst, int rows,
-                                          uint8_t* smem, const Fold& fold) {
+                                          int rows, uint8_t* smem,
+                                          const Fold& fold) {
   using B = Bulk<L>;
   constexpr int W = 2 * L, R = B::kRowsPerThread, T = B::kThreads;
   constexpr int kSlots = B::kSlots, stages = B::kStages;
   constexpr int tile_rows = B::kTileRows, stage_words = tile_rows * W;
   const int tid = threadIdx.x;
-  const int per_inst = (rows + tile_rows - 1) / tile_rows;
-  const int total = n_inst * per_inst;
+  const int total = (rows + tile_rows - 1) / tile_rows;
   const int mine = (int)blockIdx.x < total
                        ? (total - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                        : 0;
@@ -369,17 +365,15 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
   uint32_t* slots = ring + stages * stage_words;       // outputs
   const uint32_t bars = smem_u32(slots + kSlots * stage_words);
 
-  // tile `it` of this block: instance, first row, rows in the tile
-  auto tile = [&](int it, int& inst, int& row0, int& n) {
-    const int t = (int)blockIdx.x + it * (int)gridDim.x;
-    inst = t / per_inst;
-    row0 = (t - inst * per_inst) * tile_rows;
+  // tile `it` of this block: first row, rows in the tile
+  auto tile = [&](int it, int& row0, int& n) {
+    row0 = ((int)blockIdx.x + it * (int)gridDim.x) * tile_rows;
     n = min(tile_rows, rows - row0);
   };
   auto issue = [&](int it, int s) {  // one thread: the A and B spans
-    int inst, row0, n;
-    tile(it, inst, row0, n);
-    const size_t first = ((size_t)inst * rows + row0) * L;
+    int row0, n;
+    tile(it, row0, n);
+    const size_t first = (size_t)row0 * L;
     const uint32_t bar = bars + 8u * s;
     const uint32_t dst = smem_u32(ring + s * stage_words);
     mbar_expect_tx(bar, 2u * n * L * 4);
@@ -392,32 +386,25 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int it = 0; it < min(stages, mine); ++it) issue(it, it);
   }
-  [[maybe_unused]] int own[R], next[R];
-  if constexpr (ByRow<Fold>::value) {
-    if (mine > 0) {
-      int inst, row0, n;
-      tile(0, inst, row0, n);
-      tile_owners<R, T>(fold, (size_t)inst * rows + row0, n, next);
-    }
+  int own[R], next[R];
+  if (mine > 0) {
+    int row0, n;
+    tile(0, row0, n);
+    tile_owners<R, T>(fold, row0, n, next);
   }
   __syncthreads();
   int s = 0;
   uint32_t phase = 0;
   for (int it = 0; it < mine; ++it) {
-    int inst, row0, n;
-    tile(it, inst, row0, n);
+    int row0, n;
+    tile(it, row0, n);
     const uint32_t* sa = ring + s * stage_words;
-    [[maybe_unused]] uint32_t wt[L];  // the state of the tile's instance
-    if constexpr (ByRow<Fold>::value) {
 #pragma unroll
-      for (int k = 0; k < R; ++k) own[k] = next[k];
-      if (it + 1 < mine) {
-        int inst1, row1, n1;
-        tile(it + 1, inst1, row1, n1);
-        tile_owners<R, T>(fold, (size_t)inst1 * rows + row1, n1, next);
-      }
-    } else {
-      fold.warp_weights(inst, wt);
+    for (int k = 0; k < R; ++k) own[k] = next[k];
+    if (it + 1 < mine) {
+      int row1, n1;
+      tile(it + 1, row1, n1);
+      tile_owners<R, T>(fold, row1, n1, next);
     }
     mbar_wait(bars + 8u * s, phase);
     uint32_t av[R][L], bv[R][L];
@@ -433,22 +420,16 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
     }
     __syncthreads();  // stage s is read; this tile's output slot is free
     if (tid == 0 && it + stages < mine) issue(it + stages, s);
-    const size_t first = (size_t)inst * rows + row0;
     uint32_t* slot = slots + (it & 1) * stage_words;
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const int r = tid + k * T;
       if (r < n) {
-        uint32_t acc[W];
-        if constexpr (ByRow<Fold>::value) {
-          uint32_t w[L];
-          fold.row_weights(own[k], w);
-          fold.product(av[k], bv[k], w, acc, W);
-        } else {
-          fold.product(av[k], bv[k], wt, acc, W);
-        }
+        uint32_t w[L], acc[W];
+        fold.row_weights(own[k], w);
+        fold.product(av[k], bv[k], w, acc, W);
         if constexpr (kSlots == 0) {  // one 16-byte product a row
-          reinterpret_cast<uint4*>(out)[first + r] =
+          reinterpret_cast<uint4*>(out)[(size_t)row0 + r] =
               make_uint4(acc[0], acc[1], acc[2], acc[3]);
         } else {
           write_row<W>(slot, r, acc);
@@ -458,7 +439,9 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
     if constexpr (kSlots > 0) {
       fence_async_smem();
       __syncthreads();
-      if (tid == 0) bulk_store(out + first * W, smem_u32(slot), n * W * 4);
+      if (tid == 0) {
+        bulk_store(out + (size_t)row0 * W, smem_u32(slot), n * W * 4);
+      }
     }
     if (++s == stages) {
       s = 0;
@@ -468,9 +451,8 @@ __device__ __forceinline__ void bulk_walk(const uint32_t* __restrict__ a,
   if (tid == 0) bulk_wait_all();
 }
 
-// The per-thread path: tile `k` (rows k*blockDim.x ...) of instance
-// `inst`, any widths up to MAXL limbs, any 4-byte alignment (a functor of
-// ByRow takes each row's state by its owner). A thread
+// The per-thread path: tile `k` (rows k*blockDim.x ...), any widths up
+// to MAXL limbs, any 4-byte alignment. A thread
 // loads its row's limbs straight from device memory: a warp's LA loads
 // at a stride of LA words fall on the same lines, which L1 serves after
 // the first. Products of at most 4 words (MAXL = 2) are stored the same
@@ -483,23 +465,23 @@ __host__ __device__ constexpr int pitch(int words) { return words | 1; }
 template <int MAXL, class Fold>
 __device__ __forceinline__ void coalesced_tile(
     const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-    uint32_t* __restrict__ out, int inst, int k, int rows, int la, int lb,
+    uint32_t* __restrict__ out, int k, int rows, int la, int lb,
     uint32_t* buf, const Fold& fold) {
   const int T = blockDim.x, tid = threadIdx.x;
   const int row0 = k * T, lo = la + lb;
   const int n = min(T, rows - row0);
-  const size_t row = (size_t)inst * rows + row0 + tid;
+  const size_t row = (size_t)row0 + tid;
   const bool live = tid < n;
   uint32_t av[MAXL], bv[MAXL], acc[2 * MAXL], w[MAXL];
   if (live) {
     limbs::load_row<MAXL>(a + row * la, la, av);
     limbs::load_row<MAXL>(b + row * lb, lb, bv);
   }
-  if constexpr (ByRow<Fold>::value) {
-    if (live) fold.row_weights(fold.row_owner(row), w);
-  } else {
-    fold.weights(inst, w);
-  }
+  // every thread takes weights, one past the tile's end owner 0's (a round
+  // always has an instance 0): called only for live rows, constant weights
+  // compiled to more registers on the H100 (fold_kernel<2> 19 against 16;
+  // kara_fold_kernel<18> spilled)
+  fold.row_weights(live ? fold.row_owner(row) : 0, w);
   if (live) fold.product(av, bv, w, acc, lo);
   if constexpr (MAXL == 2) {
     if (live) {
@@ -584,27 +566,13 @@ cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
-// The shape of a bulk kernel of L limbs on this device, for reports:
-// info = {threads, tile rows, stages, shared bytes, grid blocks}
-// (`extra_max`: as in bulk_launch_shape; the shared bytes are the most).
-template <int L, class Kernel>
-cudaError_t bulk_shape(Kernel kernel, int* info, size_t extra_max = 0) {
-  using B = Bulk<L>;
-  info[0] = B::kThreads;
-  info[1] = B::kTileRows;
-  info[2] = B::kStages;
-  info[3] = (int)(B::kBytes + extra_max);
-  return resident_blocks(kernel, B::kThreads, B::kBytes + extra_max,
-                         B::kPerSm, info + 4);
-}
-
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The launch of a bulk kernel of L limbs over n_inst instances of `rows`
-// rows on this device: info = {grid.x, grid.y, threads, dynamic shared
-// bytes}, the persistent grid min(tiles, resident blocks). Returns
+// The launch of a bulk kernel of L limbs over `rows` rows on this device:
+// info = {grid.x, grid.y = 1, threads, dynamic shared bytes}, the
+// persistent grid min(tiles, resident blocks). Returns
 // cudaErrorInvalidValue where the bulk path does not take the rows (rows
 // * L not a multiple of 4, or 2**31 tiles or more). The bulk launchers
 // launch what it returns; `*_launch_shape` exports it. A kernel that
@@ -613,12 +581,10 @@ inline bool aligned16(const void* p) {
 // occupancy query, and the kernel's shared memory limit, are made once
 // a kernel, with the same bytes every time).
 template <int L, class Kernel>
-cudaError_t bulk_launch_shape(Kernel kernel, long long n_inst,
-                              long long rows, int* info, size_t extra = 0,
-                              size_t extra_max = 0) {
+cudaError_t bulk_launch_shape(Kernel kernel, long long rows, int* info,
+                              size_t extra = 0, size_t extra_max = 0) {
   using B = Bulk<L>;
-  const long long total =
-      n_inst * ((rows + B::kTileRows - 1) / B::kTileRows);
+  const long long total = (rows + B::kTileRows - 1) / B::kTileRows;
   if (total >= (1LL << 31) || rows * L % 4) return cudaErrorInvalidValue;
   int blocks = 0;
   const cudaError_t err = resident_blocks(
@@ -632,14 +598,14 @@ cudaError_t bulk_launch_shape(Kernel kernel, long long n_inst,
 }
 
 // The launch of a per-thread kernel of MAXL limbs (coalesced_tile):
-// info = {tiles, n_inst, kTileRows threads, dynamic shared bytes}, one
-// block a tile of kTileRows rows of an instance; products wider than 4
+// info = {tiles, 1, kTileRows threads, dynamic shared bytes}, one
+// block a tile of kTileRows rows; products wider than 4
 // words leave through kTileRows rows of pitch(la + lb) words (at most
 // 25,088 B, at 24 limbs: below the default 48 KiB, no attribute needed).
-inline void tile_launch_shape(int maxl, int n_inst, int rows, int la, int lb,
+inline void tile_launch_shape(int maxl, int rows, int la, int lb,
                               int* info) {
   info[0] = (rows + kTileRows - 1) / kTileRows;
-  info[1] = n_inst;
+  info[1] = 1;
   info[2] = kTileRows;
   info[3] = maxl == 2 ? 0 : kTileRows * pitch(la + lb) * 4;
 }

@@ -25,13 +25,14 @@ held here on the CPU.
 """
 from __future__ import annotations
 
+from repro_torch import h100
+
 PATHS = ("bulk", "per_thread")
 #: operand widths (limbs, LA = LB) the bulk kernels are compiled for
+#: (``tiles::BulkWidths`` of ``csrc/row_tiles.cuh``)
 BULK_LIMBS = (2, 4, 8, 16, 24)
 #: rows of a per-thread tile, one thread a row (``tiles::kTileRows``)
 TILE_ROWS = 128
-#: SMs of the H100 the launch contracts declare their grids for
-H100_SMS = 132
 #: blocks of each bulk kernel an H100 SM holds at its threads, registers
 #: and shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
 #: the card holds the declaration to it, ``python -m repro_torch.verify
@@ -49,9 +50,9 @@ BULK_INSTANCES = 128
 
 
 def plan(rows: int, la: int, lb: int, aligned: bool) -> str:
-    """The path of one launch over instances of ``rows`` rows of (LA, LB)
-    limbs.  ``aligned``: every operand's base address is a multiple of
-    16 bytes."""
+    """The path of one launch over ``rows`` rows of (LA, LB) limbs.
+    ``aligned``: every operand's base address is a multiple of 16
+    bytes."""
     if la == lb and la in BULK_LIMBS and aligned and rows * la % 4 == 0:
         return "bulk"
     return "per_thread"
@@ -80,55 +81,46 @@ def bulk_constants(limbs: int) -> dict:
             + 8 * stages}
 
 
-def bulk_launch(lib: str, n_inst: int, rows: int, limbs: int,
-                extra: int = 0) -> tuple:
+def bulk_launch(lib: str, rows: int, limbs: int, extra: int = 0) -> tuple:
     """(grid, threads, dynamic shared bytes) of a bulk launch over
-    ``n_inst`` instances of ``rows`` rows on the H100: the persistent
-    grid min(tiles, SMs x blocks an SM), as ``tiles::bulk_launch_shape``
-    computes it.  ``lib``: the source whose bulk kernel it is; ``extra``:
-    the kernel's own shared bytes after the walk's."""
+    ``rows`` rows on the H100: the persistent grid min(tiles, SMs x
+    blocks an SM), as ``tiles::bulk_launch_shape`` computes it.  ``lib``:
+    the source whose bulk kernel it is; ``extra``: the kernel's own
+    shared bytes after the walk's."""
     c = bulk_constants(limbs)
     fit = H100_BULK_FIT[lib][limbs]
     per_sm = min(c["per_sm"], fit) if c["per_sm"] else fit
-    tiles = n_inst * -(-rows // c["tile_rows"])
-    return ((min(tiles, H100_SMS * per_sm), 1), c["threads"],
+    tiles = -(-rows // c["tile_rows"])
+    return ((min(tiles, h100.SMS * per_sm), 1), c["threads"],
             c["bytes"] + extra)
 
 
-def tile_launch(maxl: int, n_inst: int, rows: int, la: int, lb: int
-                ) -> tuple:
+def tile_launch(maxl: int, rows: int, la: int, lb: int) -> tuple:
     """(grid, threads, dynamic shared bytes) of a per-thread launch of a
     kernel compiled for ``maxl`` limbs, as ``tiles::tile_launch_shape``
-    computes it: a block a tile of :data:`TILE_ROWS` rows of an instance;
-    products of more than 4 words staged at :func:`pitch` words a row."""
+    computes it: a block a tile of :data:`TILE_ROWS` rows; products of
+    more than 4 words staged at :func:`pitch` words a row."""
     smem = 0 if maxl == 2 else TILE_ROWS * pitch(la + lb) * 4
-    return (-(-rows // TILE_ROWS), n_inst), TILE_ROWS, smem
+    return (-(-rows // TILE_ROWS), 1), TILE_ROWS, smem
 
 
 def bucket(la: int, lb: int) -> int:
-    """The compiled width (``limbs::bucket``) that holds max(LA, LB),
-    at most 24 limbs."""
+    """The compiled width (``limbs::bucket``, over ``limbs::Buckets``)
+    that holds max(LA, LB), at most 24 limbs."""
     n = max(la, lb)
     return (2 if n <= 2 else 4 if n <= 4 else 8 if n <= 8
             else 16 if n <= 16 else 24)
 
 
-def tile_walk(n_inst: int, rows: int, tile_rows: int, grid: int) -> list:
-    """For each of ``grid`` blocks, its tiles as (instance, first row,
-    rows) in the order the bulk kernel walks them: block ``x`` takes
-    tiles x, x + grid, ...; tile t is tile t % per_inst of instance
-    t // per_inst.  The per-thread path is the walk with one tile a
-    block."""
-    per_inst = -(-rows // tile_rows)
-    total = n_inst * per_inst
-    walk = []
-    for block in range(grid):
-        mine = []
-        for t in range(block, total, grid):
-            row0 = t % per_inst * tile_rows
-            mine.append((t // per_inst, row0, min(tile_rows, rows - row0)))
-        walk.append(mine)
-    return walk
+def tile_walk(rows: int, tile_rows: int, grid: int) -> list:
+    """For each of ``grid`` blocks, its tiles as (first row, rows) in the
+    order the bulk kernel walks them: block ``x`` takes tiles x,
+    x + grid, ..., tile t being rows t * tile_rows ....  The per-thread
+    path is the walk with one tile a block."""
+    n_tiles = -(-rows // tile_rows)
+    return [[(t * tile_rows, min(tile_rows, rows - t * tile_rows))
+             for t in range(block, n_tiles, grid)]
+            for block in range(grid)]
 
 
 def is_aligned(*tensors) -> bool:

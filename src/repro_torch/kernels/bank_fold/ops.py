@@ -97,8 +97,7 @@ def launch_contract(configs, la: int, lb: int, rows: int = 64,
     return introspect.row_tile_contract(
         name=(f"bank_fold[la={la},lb={lb},n={n_inst},steps={sg.max_steps},"
               f"batch={batch}]"),
-        lib="bank_fold", kernel=kernel, path=path,
-        n_inst=1, rows=batch, la=la, lb=lb,
+        lib="bank_fold", kernel=kernel, path=path, rows=batch, la=la, lb=lb,
         launch_args=(n_inst, batch, la, lb, max_steps),
         operands={
             "a": introspect.Operand((batch, la), "int32"),

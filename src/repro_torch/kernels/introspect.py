@@ -30,9 +30,9 @@ exposes a ``launch_contract(...)`` hook returning a
 it writes and the operand spans it reads, from the kernels' own index
 arithmetic: the bulk row-tile walk is :func:`._row_tiles.tile_walk`.
 
-The module also keeps the H100 figures every bound in the port uses
-(``PERF.md`` section 6) and the integer operations a row of each limb
-kernel issues.
+The module also keeps the integer operations a row of each limb kernel
+issues, and the bound the H100's figures (:mod:`repro_torch.h100`) set
+on a launch.
 """
 from __future__ import annotations
 
@@ -41,18 +41,12 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 
+from repro_torch import h100
 from . import _row_tiles
 from ._build import MAX_LIMBS
 
-#: H100 SXM peaks (NVIDIA data sheet; CUDA C Programming Guide throughput
-#: table for compute capability 9.0: 64 int32 add/logic/shift/IMAD
-#: results per clock per SM, 132 SMs, 1.98 GHz boost clock)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-INT8_TC_OPS_PER_S = 1.979e15       # dense int8 tensor-core peak
-OPS_PER_S = {"int32": INT32_OPS_PER_S, "int8": INT8_TC_OPS_PER_S}
-#: shared memory a block may opt in to on the H100 (227 KiB)
-H100_SMEM_OPTIN = 232448
+#: operations a second of each kind a launch counts
+OPS_PER_S = {"int32": h100.INT32_OPS_PER_S, "int8": h100.INT8_TC_OPS_PER_S}
 
 _ITEMSIZE = {"int8": 1, "int32": 4, "int64": 8, "float32": 4,
              "bfloat16": 2}
@@ -135,14 +129,12 @@ class LaunchContract:
 
 # --------------------------------------------------------------- walks
 
-def _row_regions(c: LaunchContract, inst: int, row0: int, n: int) -> tuple:
-    """The reads and writes of ``n`` rows of instance ``inst`` from row
-    ``row0``: rows of A, B and the product, and where the launch reads
-    an owner table (``bank_fold``: rows in batch order), the rows'
-    owners and every instance's windows."""
-    rows = c.meta["rows"]
-    r0 = inst * rows + row0
-    span = (r0, r0 + n)
+def _row_regions(c: LaunchContract, row0: int, n: int) -> tuple:
+    """The reads and writes of ``n`` rows from row ``row0``: rows of A, B
+    and the product, and where the launch reads an owner table
+    (``bank_fold``: rows in batch order), the rows' owners and every
+    instance's windows."""
+    span = (row0, row0 + n)
     reads = tuple((name, span, (0, c.operands[name].cols))
                   for name in ("a", "b"))
     if "owner" in c.operands:
@@ -153,31 +145,30 @@ def _row_regions(c: LaunchContract, inst: int, row0: int, n: int) -> tuple:
 
 def _walk_bulk(c: LaunchContract):
     """The bulk walk (``tiles::bulk_walk``): block x takes tiles x,
-    x + grid, ... of ``tile_rows`` rows, never crossing instances."""
-    walk = _row_tiles.tile_walk(c.meta["n_inst"], c.meta["rows"],
-                                c.meta["tile_rows"], c.grid[0])
+    x + grid, ... of ``tile_rows`` rows."""
+    walk = _row_tiles.tile_walk(c.meta["rows"], c.meta["tile_rows"],
+                                c.grid[0])
     for x, tiles in enumerate(walk):
         reads, writes = (), ()
-        for inst, row0, n in tiles:
-            r, w = _row_regions(c, inst, row0, n)
+        for row0, n in tiles:
+            r, w = _row_regions(c, row0, n)
             reads += r
             writes += w
         yield BlockWork((x, 0), reads, writes)
 
 
 def _walk_tiles(c: LaunchContract):
-    """The per-thread path (``tiles::coalesced_tile``): block (x, y)
-    takes rows x * threads ... of instance y, masked at the row edge."""
+    """The per-thread path (``tiles::coalesced_tile``): block x takes
+    rows x * threads ..., masked at the row edge."""
     rows = c.meta["rows"]
-    for y in range(c.grid[1]):
-        for x in range(c.grid[0]):
-            row0 = x * c.block
-            n = min(c.block, rows - row0)
-            if n <= 0:
-                yield BlockWork((x, y), (), ())
-                continue
-            reads, writes = _row_regions(c, y, row0, n)
-            yield BlockWork((x, y), reads, writes)
+    for x in range(c.grid[0]):
+        row0 = x * c.block
+        n = min(c.block, rows - row0)
+        if n <= 0:
+            yield BlockWork((x, 0), (), ())
+            continue
+        reads, writes = _row_regions(c, row0, n)
+        yield BlockWork((x, 0), reads, writes)
 
 
 def _walk_segments(c: LaunchContract):
@@ -221,11 +212,11 @@ _WALKS = {"bulk": _walk_bulk, "tiles": _walk_tiles,
 # ------------------------------------------------------ row-tile launches
 
 def row_tile_contract(*, name: str, lib: str, kernel: str, path: str,
-                      n_inst: int, rows: int, la: int, lb: int,
-                      launch_args: tuple, operands: dict, out_shape: tuple,
-                      ops: int, **extra) -> LaunchContract:
+                      rows: int, la: int, lb: int, launch_args: tuple,
+                      operands: dict, out_shape: tuple, ops: int,
+                      **extra) -> LaunchContract:
     """The contract of one launch of a row-tile kernel (``bank_fold``,
-    FB/FF, both Karatsubas) over ``n_inst`` instances of ``rows`` rows:
+    FB/FF, both Karatsubas) over ``rows`` rows:
     the grid, threads and shared memory :func:`launch_shape` gives for
     its arguments, and the model ``tiles::Bulk<L>::kBytes`` on the bulk
     path, a tile of staged output rows (``kTileRows x pitch(LA + LB)``
@@ -246,7 +237,7 @@ def row_tile_contract(*, name: str, lib: str, kernel: str, path: str,
         outputs={"out": Operand(tuple(out_shape), "int32")},
         table=extra.pop("table", None),
         idle_steps=extra.pop("idle_steps", ()),
-        meta={**walk, "n_inst": n_inst, "rows": rows, "la": la, "lb": lb,
+        meta={**walk, "rows": rows, "la": la, "lb": lb,
               "ops": int(ops), "ops_kind": "int32", **extra})
 
 
@@ -291,11 +282,10 @@ def launch_shape(kernel: str, args: tuple) -> tuple:
         return (-(-m // tm), -(-n // tn)), threads, dynamic
     if lib == "bank_fold":         # a round's rows in batch order
         n_bank, rows, la, lb, _ = args
-        n_inst = 1
     elif lib == "mcim_fold":
-        (rows, la, lb), n_inst = args, 1
+        rows, la, lb = args
     else:
-        (rows, la), n_inst = args, 1
+        rows, la = args
         lb = la
         if la % 2 or not 2 <= la <= MAX_LIMBS:
             raise ValueError(f"{kernel}: N = {la} is not an even "
@@ -305,19 +295,19 @@ def launch_shape(kernel: str, args: tuple) -> tuple:
             raise ValueError(f"{kernel}: the bulk path does not take "
                              f"{rows} rows of {la}x{lb} limbs")
         if lib != "bank_fold":
-            return rt.bulk_launch(lib, n_inst, rows, la)
+            return rt.bulk_launch(lib, rows, la)
         if not 1 <= n_bank <= rt.BULK_INSTANCES:
             raise ValueError(f"{kernel}: a bulk block keeps the limb "
                              f"weights of 1 to {rt.BULK_INSTANCES} "
                              f"instances, not {n_bank}")
-        return rt.bulk_launch(lib, n_inst, rows, la, n_bank * la * 4)
+        return rt.bulk_launch(lib, rows, la, n_bank * la * 4)
     if kernel == "mcim_fold_karatsuba_launch":
         maxl = max(la, lb) + max(la, lb) % 2
     elif lib == "karatsuba_ppm":
         maxl = la
     else:
         maxl = rt.bucket(la, lb)
-    return rt.tile_launch(maxl, n_inst, rows, la, lb)
+    return rt.tile_launch(maxl, rows, la, lb)
 
 
 # ------------------------------------------------------ operation counts
@@ -375,6 +365,6 @@ def bound_ms(n_bytes: int, n_ops: int, ops_kind: str = "int32") -> tuple:
     """(ms, "bytes" or "operations"): the least time the H100 could take
     for ``n_bytes`` of device memory and ``n_ops`` operations of
     ``ops_kind``, the larger of the two."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = n_bytes / h100.HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / OPS_PER_S[ops_kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -21,7 +21,7 @@ def launch_contract(n: int, batch: int = 256):
         name=f"karatsuba_ppm[n={n},batch={batch}]", lib="karatsuba_ppm",
         kernel=("karatsuba_ppm_bulk_launch" if path == "bulk"
                 else "karatsuba_ppm_launch"),
-        path=path, n_inst=1, rows=batch, la=n, lb=n,
+        path=path, rows=batch, la=n, lb=n,
         launch_args=(batch, n),
         operands={"a": introspect.Operand((batch, n), "int32"),
                   "b": introspect.Operand((batch, n), "int32")},

@@ -60,8 +60,8 @@ def launch_contract(la: int, lb: int, ct: int, schedule: str = "fb",
     return introspect.row_tile_contract(
         name=(f"mcim_fold/{schedule}[la={la},lb={lb},ct={run_ct},"
               f"batch={batch}]"),
-        lib="mcim_fold", kernel=kernel, path=path, n_inst=1, rows=batch,
-        la=la, lb=lb, launch_args=(batch, la, lb),
+        lib="mcim_fold", kernel=kernel, path=path, rows=batch, la=la, lb=lb,
+        launch_args=(batch, la, lb),
         operands={"a": introspect.Operand((batch, la), "int32"),
                   "b": introspect.Operand((batch, lb), "int32")},
         out_shape=(batch, la + lb), ops=batch * ops)

@@ -1,8 +1,8 @@
 """Roofline terms from a dry-run cell's counts, as the JAX package's
 ``launch/roofline.py``, with the NVIDIA H100's constants.
 
-Hardware model (NVIDIA H100 SXM5 datasheet; dense rates at the full
-700 W power limit):
+Hardware model (:mod:`repro_torch.h100`; the links: NVIDIA H100 SXM5
+datasheet):
   peak bf16 compute : 989e12 FLOP/s per card
   HBM3 bandwidth    : 3.35e12 B/s per card
   NVLink            : 450e9 B/s each way per card, within a node of 8
@@ -33,8 +33,10 @@ import functools
 import pathlib
 import re
 
-PEAK_FLOPS = 989e12
-HBM_BW = 3.35e12
+from repro_torch import h100
+
+PEAK_FLOPS = h100.BF16_FLOPS_PER_S
+HBM_BW = h100.HBM_BYTES_PER_S
 NVLINK_BW = 450e9
 NET_BW = 50e9
 NODE_GPUS = 8

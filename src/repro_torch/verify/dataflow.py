@@ -47,6 +47,7 @@ import functools
 
 import numpy as np
 
+from repro_torch import h100
 from repro_torch.kernels import _row_tiles, introspect
 from repro_torch.kernels._build import MAX_LIMBS
 from repro_torch.kernels.prefix_adder.kernel import MAX_WIDTH
@@ -57,7 +58,7 @@ _ANALYZER = "dataflow"
 #: ragged/prime batch sizes the tiler must produce safe launches for
 RAGGED_BATCHES = (8, 56, 64, 100, 256, 512, 513, 977)
 #: default shared-memory budget a block: the H100's opt-in limit
-DEFAULT_SMEM_BUDGET = introspect.H100_SMEM_OPTIN
+DEFAULT_SMEM_BUDGET = h100.SMEM_OPTIN_BYTES
 #: findings of one rule reported one by one before the rest are counted
 _SHOWN = 4
 

@@ -12,19 +12,22 @@ compile-time constants of the CUDA source (``tiles::Bulk``, whose
 memory an H100 block may use).
 """
 import itertools
+import re
 
 import pytest
 import torch
 
 from repro_torch import telemetry
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, introspect
 from repro_torch.kernels import _row_tiles as RT
 from repro_torch.kernels import bank_fold as TB
 from repro_torch.kernels import karatsuba_ppm as TK
 from repro_torch.kernels import mcim_fold as TF
 
-TP3P5_W32 = (4, 300_032, 2)            # fused blocks of a B = 2**20 round
-TP5OVER6_W128 = (2, 629_248, 8)
+#: a bank round's one launch: (instances, rows in batch order, limbs)
+TP3P5_W32 = (4, 1_048_576, 2)
+TP5OVER6_W128 = (2, 1_048_576, 8)
+TP5OVER6_W381 = (2, 1_048_576, 24)
 STAR_ROWS = 299_593                     # star (FB at CT=1) of tp3p5_w32
 FB8_ROWS = 629_146                      # fb(ct=2) of tp5over6_w128
 #: rows of a tile on either path: 128 (per-thread; bulk at 8 and 16
@@ -35,6 +38,7 @@ TILE_ROWS = (128, 256, 512)
 @pytest.mark.parametrize("n_inst,rows,la,lb,aligned,path", [
     (*TP3P5_W32, 2, True, "bulk"),              # the main path's shapes
     (*TP5OVER6_W128, 8, True, "bulk"),
+    (*TP5OVER6_W381, 24, True, "bulk"),
     (1, 1_048_576, 2, 2, True, "bulk"),         # FF, tbl8_w32_strict
     (*TP3P5_W32, 2, False, "per_thread"),       # misaligned base
     (1, 7, 2, 2, True, "per_thread"),           # odd rows at LA = 2
@@ -79,29 +83,27 @@ def test_bulk_path_takes_every_shape_bulk_copies_can_move(la):
                         got if la == 2 else "per_thread")
 
 
-@pytest.mark.parametrize("n_inst,rows,la", [
-    TP3P5_W32, TP5OVER6_W128, (1, 1_048_576, 2), (1, 1, 2), (4, 7, 2),
-    (3, 127, 4), (2, 128, 8), (4, 129, 16), (3, 3 * 128 + 2, 2),
-    (1, 3 * 512 + 2, 2), (1, 255, 3), (1, 7, 2), (1, 3 * 512 + 1, 2),
-    (1, STAR_ROWS, 2), (1, FB8_ROWS, 8)])
+@pytest.mark.parametrize("rows,la", [
+    (1_200_128, 2), (1_258_496, 8), (1_048_576, 2), (1, 2), (28, 2),
+    (381, 4), (256, 8), (516, 16), (1_158, 2), (3 * 512 + 2, 2), (255, 3),
+    (7, 2), (3 * 512 + 1, 2), (STAR_ROWS, 2), (FB8_ROWS, 8)])
 @pytest.mark.parametrize("grid", (1, 7, 132, 2112))
-def test_tiles_cover_every_row_once(n_inst, rows, la, grid):
-    bulk = TB.launch_plan(n_inst, rows, la, la, True) == "bulk"
+def test_tiles_cover_every_row_once(rows, la, grid):
+    bulk = RT.plan(rows, la, la, True) == "bulk"
     for tile_rows in TILE_ROWS:
-        seen = torch.zeros((n_inst, rows), dtype=torch.int32)
-        walk = RT.tile_walk(n_inst, rows, tile_rows, grid)
+        seen = torch.zeros((rows,), dtype=torch.int32)
+        walk = RT.tile_walk(rows, tile_rows, grid)
         assert len(walk) == grid
         for mine in walk:
-            for inst, row0, n in mine:
+            for row0, n in mine:
                 assert 0 < n <= tile_rows and row0 + n <= rows
-                seen[inst, row0:row0 + n] += 1
+                seen[row0:row0 + n] += 1
                 if bulk:                 # whole 16-byte spans
-                    first = inst * rows + row0
                     for words in (la, 2 * la):
-                        assert first * words * 4 % 16 == 0
+                        assert row0 * words * 4 % 16 == 0
                         assert n * words * 4 % 16 == 0
         assert torch.equal(seen, torch.ones_like(seen))
-        # a block's tiles come in order, each inside one instance
+        # a block's tiles come in order
         for mine in walk:
             assert mine == sorted(mine)
 
@@ -232,3 +234,42 @@ def test_path_counts_reset_with_the_launch_counts():
         for k in ("bank_fold", "mcim_fold_fb", "mcim_fold_ff",
                   "karatsuba_ppm")}
     assert set(_build.launch_counts().values()) == {0}
+
+
+def _widths(header: str, name: str) -> tuple:
+    """The width list ``using <name> = ...Widths<...>;`` of a header of
+    ``csrc/``, read as text (nothing is built)."""
+    text = (_build.CSRC / header).read_text()
+    found = re.findall(rf"using {name} = (?:limbs::)?Widths<([0-9, ]+)>;",
+                       text)
+    assert len(found) == 1, f"{header}: one list {name}"
+    return tuple(int(w) for w in found[0].split(","))
+
+
+def test_width_mirrors_are_the_headers_lists():
+    """The CPU mirrors of the compiled widths, each held to the one list
+    of ``csrc/`` that decides them: the per-thread buckets
+    (``limbs::Buckets``) and the widest operand, the bulk widths
+    (``tiles::BulkWidths``) and the Karatsubas' N (``kara::EvenN``)."""
+    buckets = _widths("limbs.cuh", "Buckets")
+    bulk = _widths("row_tiles.cuh", "BulkWidths")
+    even_n = _widths("kara_rows.cuh", "EvenN")
+    max_limbs = re.findall(r"constexpr int kMaxLimbs = (\d+);",
+                           (_build.CSRC / "limbs.cuh").read_text())
+    assert [int(m) for m in max_limbs] == [_build.MAX_LIMBS]
+    assert max(buckets) == max(even_n) == _build.MAX_LIMBS
+    for n in range(1, _build.MAX_LIMBS + 1):
+        assert RT.bucket(n, 1) == RT.bucket(1, n) == min(
+            w for w in buckets if w >= n)
+    assert RT.BULK_LIMBS == bulk
+    for lib in ("bank_fold", "mcim_fold"):
+        assert tuple(RT.H100_BULK_FIT[lib]) == bulk
+    assert tuple(RT.H100_BULK_FIT["karatsuba_ppm"]) == (2,)
+    assert even_n == tuple(range(2, _build.MAX_LIMBS + 1, 2))
+    for n in range(_build.MAX_LIMBS + 3):
+        try:
+            introspect.launch_shape("karatsuba_ppm_launch", (128, n))
+        except ValueError:
+            assert n not in even_n
+        else:
+            assert n in even_n

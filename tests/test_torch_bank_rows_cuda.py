@@ -34,8 +34,8 @@ BATCHES = (1, 7, 257, 1 << 20)
 #: (registers, local bytes, static shared bytes, most threads a block) of
 #: the kernels that share the row-tile walks with bank_fold, by their
 #: ``*_attributes`` entry and its arguments: what they compile to on the
-#: H100 with tile-uniform weights, which the walks' row-by-row lookup for
-#: bank_fold (a functor of ``tiles::ByRow``) must leave as it is
+#: H100 with constant owners and weights, which the walks' row-by-row
+#: lookup for bank_fold must leave as it is
 MCIM_ATTRIBUTES = {
     ("mcim_fold", "mcim_fold_attributes", (1000, 1, 1)):
         (16, 0, 0, 128),
@@ -58,7 +58,7 @@ MCIM_ATTRIBUTES = {
     ("mcim_fold", "mcim_fold_attributes", (1000, 24, 24)):
         (80, 0, 0, 128),
     ("mcim_fold", "mcim_fold_bulk_attributes", (1024, 2, 2)):
-        (30, 0, 0, 256),
+        (23, 0, 0, 256),
     ("mcim_fold", "mcim_fold_bulk_attributes", (1024, 4, 4)):
         (29, 0, 0, 256),
     ("mcim_fold", "mcim_fold_bulk_attributes", (1024, 8, 8)):
@@ -116,7 +116,7 @@ MCIM_ATTRIBUTES = {
     ("karatsuba_ppm", "karatsuba_ppm_attributes", (1000, 24)):
         (108, 0, 0, 128),
     ("karatsuba_ppm", "karatsuba_ppm_bulk_attributes", (1024, 2)):
-        (30, 0, 0, 256),
+        (25, 0, 0, 256),
 }
 
 
@@ -271,3 +271,27 @@ def test_operand_copies_count_views_that_are_not_contiguous(cuda_device):
 def test_mcim_fold_kernels_keep_their_attributes(cuda_device, key):
     lib, symbol, args = key
     assert _build.query(lib, symbol, args) == MCIM_ATTRIBUTES[key]
+
+
+#: the most registers each ``bank_fold`` kernel may hold on the H100, by
+#: its ``*_attributes`` entry and its arguments (n_inst, rows, la, lb,
+#: max_steps); none may spill
+BANK_FOLD_REGISTERS = {
+    ("bank_fold_attributes", (2, 1000, 2, 2, 2)): 27,
+    ("bank_fold_attributes", (2, 1000, 4, 4, 2)): 32,
+    ("bank_fold_attributes", (2, 1000, 8, 8, 3)): 40,
+    ("bank_fold_attributes", (2, 1000, 16, 16, 3)): 80,
+    ("bank_fold_attributes", (2, 1000, 24, 24, 3)): 108,
+    ("bank_fold_bulk_attributes", (2, 1024, 2, 2, 2)): 32,
+    ("bank_fold_bulk_attributes", (2, 1024, 4, 4, 2)): 38,
+    ("bank_fold_bulk_attributes", (2, 1024, 8, 8, 3)): 56,
+    ("bank_fold_bulk_attributes", (2, 1024, 16, 16, 3)): 96,
+    ("bank_fold_bulk_attributes", (2, 1024, 24, 24, 3)): 128,
+}
+
+
+@pytest.mark.parametrize("key", sorted(BANK_FOLD_REGISTERS))
+def test_bank_fold_kernels_stay_within_their_registers(cuda_device, key):
+    symbol, args = key
+    regs, local, _, _ = _build.query("bank_fold", symbol, args)
+    assert regs <= BANK_FOLD_REGISTERS[key] and local == 0

@@ -441,12 +441,11 @@ def test_per_thread_walk_is_the_tile_walk_one_tile_a_block():
     assert c.path == "per_thread"
     n_tiles, n_y = c.grid
     assert n_y == 1                   # the round's rows in batch order
-    walk = _row_tiles.tile_walk(1, c.meta["rows"], c.block, n_tiles)
+    walk = _row_tiles.tile_walk(c.meta["rows"], c.block, n_tiles)
     blocks = {w.block: w for w in c.blocks()}
     for t, tiles in enumerate(walk):
-        (inst, row0, n), = tiles
+        (row0, n), = tiles
         work = blocks[(t, 0)]
-        assert inst == 0
         assert work.writes == (("out", (row0, row0 + n), (0, 6)),)
         assert ("owner", (0, 1), (row0, row0 + n)) in work.reads
 

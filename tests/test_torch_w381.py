@@ -182,11 +182,11 @@ def test_24_limb_rows_take_the_bulk_path_and_their_buckets():
     c = _row_tiles.bulk_constants(LIMBS)
     assert (c["threads"], c["tile_rows"], c["stages"], c["slots"],
             c["per_sm"], c["bytes"]) == (128, 128, 2, 2, 2, 98_320)
-    grid, threads, smem = _row_tiles.bulk_launch("bank_fold", 2, 629_248,
+    grid, threads, smem = _row_tiles.bulk_launch("bank_fold", 1 << 20,
                                                  LIMBS)
     assert (grid, threads, smem) == ((264, 1), 128, 98_320)
     # the per-thread tile stages 48-limb products at an odd pitch
-    assert _row_tiles.tile_launch(24, 1, 1001, 24, 24)[2] == 128 * 49 * 4
+    assert _row_tiles.tile_launch(24, 1001, 24, 24)[2] == 128 * 49 * 4
 
 
 def test_wide_launch_counters_are_the_recorders():
